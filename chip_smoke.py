@@ -20,14 +20,26 @@ the script exits non-zero without printing a result:
    overflow kernels run on the path too) through render(); counters,
    coverage, finiteness and ms/frame from CUDA events;
 6. the same small scene rendered on the card and on the CPU (plain
-   versions): alpha and depth bit-equal, color within 1e-3.
+   versions) with the auto, reference and pallas backends: alpha and
+   depth bit-equal, color within 1e-3;
+7. the other backends at config 4's full size on the frames that spill
+   (0, 120, 240, 600): render(backend="pallas"), render(backend="binned"),
+   flat shading (binned_pipeline without attributes) and
+   binned_pipeline(ps, attrs), each with the counters reset just before
+   it and read just after; ms/frame of each; (depth, id) bit-equal across
+   the record walk (K3'), the binned pass (K5, K3 on spills) and the fused
+   path (K2).
 
-The last lines are the card line, one JSON line describing the kernels,
-and {"ok": true, "device": {...}}. Imports nothing of JAX.
+Each kernel's bound is the larger of the bytes it must move over the
+card's memory rate and the float32 operations this run's data needs over
+the card's float32 rate (NVIDIA's H100 SXM data sheet, at 700 W). The
+last lines are the card line, one JSON line describing the kernels, and
+{"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -42,14 +54,35 @@ from software_renderer_tpu_torch.ops import frontend as fe
 from software_renderer_tpu_torch.ops import transforms as tf
 from software_renderer_tpu_torch.ops.frontend_kernel import fe_kernel, fe_plain
 from software_renderer_tpu_torch.ops.rasterize_kernel import (
-    _poison_row, visibility_merge_kernel, visibility_merge_plain)
-from software_renderer_tpu_torch.render import triangle_inputs
+    _poison_row, visibility_kernel, visibility_merge_kernel,
+    visibility_merge_plain, visibility_pallas, visibility_plain)
+from software_renderer_tpu_torch.render import planar_front_of, triangle_inputs
 
 # Shaded planes (kernel vs plain on the same card): both round every
 # operation the same way; only powf may differ from torch.pow by an ulp
 # or two, amplified at most by the color range 0..1.
 PLANE_TOL = 1e-5
 MAIN_FRAMES = (0, 100, 120, 240, 300, 400, 600, 700)
+BACKEND_FRAMES = (0, 120, 240, 600)
+# The render path's pair budget for culled scenes (render.py).
+BUDGET = 0.85
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet, 700 W): float32
+# outside the tensor cores, and HBM3.
+F32_OPS_PER_S = 67e12
+HBM_BYTES_PER_S = 3.35e12
+# Float32 operations per (pixel, record) test: two edge functions and the
+# depth plane (2 mul + 2 add each), e2 (2 sub), three edge compares and
+# the depth compare; the record walks' bbox clamp adds 4 compares and
+# 2 adds.
+OPS_TEST = 18
+OPS_TEST_CLAMPED = 24
+# Per pixel, beyond 4 per attribute plane: the fused epilogue's lighting
+# (normalise, two dots, pow, combine), counted from fused.cu.
+OPS_EPILOGUE = 40
+# Per triangle in the front-end: corner transform and divide, screen
+# mapping, edges, depth plane, bbox and certificate, counted from fe.cu.
+OPS_FE = 200
 
 
 def sync():
@@ -86,6 +119,39 @@ def assert_bit_equal(a, b, what):
         if a.is_floating_point() else (a == b)
     if not bool(same.all()):
         raise AssertionError(f"{what}: {int((~same).sum())} entries differ")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(n_bytes, n_ops):
+    """The least time (ms) the card could take to move ``n_bytes`` and do
+    ``n_ops`` float32 operations, and which of the two bounds it. No one
+    PyTorch call computes any of these kernels' functions, so there is no
+    library time."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None)
+
+
+def bbox_pixels(bbox, width, height):
+    """Frame pixels inside each inclusive (x0, y0, x1, y1) box, summed:
+    the (pixel, record) tests a rasterizer needs at least."""
+    bb = bbox.to(torch.int64)
+    w = (bb[:, 2].clamp(max=width - 1) - bb[:, 0].clamp(min=0) + 1)
+    h = (bb[:, 3].clamp(max=height - 1) - bb[:, 1].clamp(min=0) + 1)
+    return int((w.clamp(min=0) * h.clamp(min=0)).sum())
+
+
+def resolve_bytes(rows, n_won, n_channels, *ts):
+    """Bytes a resolve that binary-searches the rows' ids must move: the
+    id column, the planes of the ``n_won`` rows that win a pixel, and the
+    tensors ``ts`` (read or written once)."""
+    return (nbytes(rows[:, tb.REC_BASE - 1], *ts)
+            + n_won * 3 * n_channels * 4)
 
 
 def card_line():
@@ -125,7 +191,9 @@ def phase_kernels(dev):
                                                   cull_backfaces=True), 50),
                      plain_ms=cuda_ms(lambda: fe_plain(
                          *fe_args, cull_backfaces=True), 5),
-                     shape=f"T={t}")
+                     shape=f"T={t}",
+                     **bound(nbytes(cols, m16, rk), OPS_FE * t))
+    bbox = torch.stack([ps.bx0, ps.by0, ps.bx1, ps.by1], dim=1)
 
     table, a, poison = fe.stream_table_planar(
         ps, fe.attribute_plane_cols(ps, attrs))
@@ -148,7 +216,11 @@ def phase_kernels(dev):
         plain_ms=cuda_ms(lambda: tb.fused_plain(rows, info.bin_start, prm,
                                                 **kw), 2),
         shape=f"{info.ids.numel()} pairs in {info.bin_start.numel() - 1} "
-              "bins")
+              "bins",
+        **bound(nbytes(rows, info.bin_start, prm, zk, ik, ok),
+                OPS_TEST * bbox_pixels(bbox[torch.unique(info.ids).long()],
+                                       w, h)
+                + w * h * (4 * a + OPS_EPILOGUE)))
 
     # Overflow set: kmax=1 spills every triangle spanning two bins or more.
     info1 = tb.build_bins(ps, width=w, height=h, kmax=1,
@@ -169,7 +241,9 @@ def phase_kernels(dev):
                                                    height=h), 5),
         plain_ms=cuda_ms(lambda: visibility_merge_plain(
             rec, z0, i0, width=w, height=h), 1),
-        shape=f"{ov.numel()} overflow records")
+        shape=f"{ov.numel()} overflow records",
+        **bound(nbytes(rec, z0, i0, z3, i3),
+                OPS_TEST_CLAMPED * bbox_pixels(rec[:, 10:14], w, h)))
 
     ov_rows = tb.gather_stream(table, ov, poison).contiguous()
     g0 = torch.zeros((a, h, w), device=dev)
@@ -184,7 +258,10 @@ def phase_kernels(dev):
                                                    height=h), 20),
         plain_ms=cuda_ms(lambda: tb.resolve_merge_plain(
             ov_rows, i3, g0, width=w, height=h), 5),
-        shape=f"{ov.numel()} overflow rows")
+        shape=f"{ov.numel()} overflow rows",
+        **bound(resolve_bytes(ov_rows, torch.unique(i3[i3 >= 0]).numel(),
+                              a, i3, g0, g4),
+                w * h * (4 * a + math.ceil(math.log2(ov.numel() + 1)))))
 
     rows1 = tb.gather_stream(table, info1.ids, poison).contiguous()
     seeds = (z3, i3, g4)
@@ -205,6 +282,75 @@ def phase_kernels(dev):
     print(f"seeded fused (kmax=1, {ov.numel()} spilled) equals the binned "
           f"frame; planes max |d| {res['fused']['seeded_max_abs_err_vs_binned']}",
           flush=True)
+
+    # K3' (the clear mode) on every record of the frame, as the pallas
+    # backend gives them, against its plain version.
+    rec_all = fe.pack_records_planar(ps, 128)
+    zc, ic = visibility_kernel(rec_all, width=w, height=h)
+    zcp, icp = visibility_plain(rec_all, width=w, height=h)
+    sync()
+    assert_bit_equal(ic, icp, "K3' ids")
+    assert_bit_equal(zc, zcp, "K3' depth")
+    # From the clear buffer with records in ascending id, K3' must equal
+    # K3's lex merge: on the overflow records above.
+    zo, io = visibility_kernel(rec, width=w, height=h)
+    sync()
+    assert_bit_equal(io, i3, "K3' vs K3 ids")
+    assert_bit_equal(zo, z3, "K3' vs K3 depth")
+    res["visibility"] = dict(
+        max_abs_err=max_err(zc, zcp),
+        ms=cuda_ms(lambda: visibility_kernel(rec_all, width=w, height=h), 5),
+        plain_ms=cuda_ms(lambda: visibility_plain(rec_all, width=w,
+                                                  height=h), 1),
+        shape=f"{rec_all.shape[0]} records, {int(ps.valid.sum())} valid",
+        **bound(nbytes(rec_all, zc, ic),
+                OPS_TEST_CLAMPED * bbox_pixels(rec_all[:, 10:14], w, h)))
+
+    # K5 and K6 on binned_pipeline's inputs: whole tiles, config 4's
+    # channels, the render path's budget.
+    info_b = tb.build_bins(ps, width=w, height=h, pair_budget_factor=BUDGET)
+    rows_b = tb.gather_stream(table, info_b.ids, poison).contiguous()
+    starts = info_b.bin_start
+    z5, i5 = tb.binned_vis_kernel(rows_b, starts, width=w, height=h)
+    z5p, i5p = tb.binned_vis_plain(rows_b, starts, width=w, height=h)
+    sync()
+    assert_bit_equal(i5, i5p, "K5 ids")
+    assert_bit_equal(z5, z5p, "K5 depth")
+    res["binned_vis"] = dict(
+        max_abs_err=max_err(z5, z5p),
+        ms=cuda_ms(lambda: tb.binned_vis_kernel(rows_b, starts, width=w,
+                                                height=h), 20),
+        plain_ms=cuda_ms(lambda: tb.binned_vis_plain(rows_b, starts,
+                                                     width=w, height=h), 2),
+        shape=f"{info_b.ids.numel()} pairs in {starts.numel() - 1} bins",
+        **bound(rows_b.shape[0] * tb.REC_BASE * 4 + nbytes(starts, z5, i5),
+                OPS_TEST * bbox_pixels(
+                    bbox[torch.unique(info_b.ids).long()], w, h)))
+
+    g6 = tb.resolve_kernel(rows_b, starts, i5, n_channels=a, width=w,
+                           height=h)
+    g6p = tb.resolve_plain(rows_b, starts, i5, n_channels=a, width=w,
+                           height=h)
+    sync()
+    err6 = max_err(g6, g6p)
+    assert err6 <= PLANE_TOL, f"K6 planes differ by {err6}"
+    longest = int((starts[1:] - starts[:-1]).max())
+    # Rows whose planes are read: one per distinct (bin, winner) pair.
+    pix_bin = ((torch.arange(h, device=dev)[:, None] // tb.TILE_H)
+               * -(-w // tb.TILE_W)
+               + torch.arange(w, device=dev)[None, :] // tb.TILE_W)
+    hit = i5 >= 0
+    n_won = torch.unique(pix_bin[hit] * tb.ID_SPAN + i5[hit].long()).numel()
+    res["resolve"] = dict(
+        max_abs_err=err6,
+        ms=cuda_ms(lambda: tb.resolve_kernel(rows_b, starts, i5,
+                                             n_channels=a, width=w,
+                                             height=h), 20),
+        plain_ms=cuda_ms(lambda: tb.resolve_plain(
+            rows_b, starts, i5, n_channels=a, width=w, height=h), 5),
+        shape=f"{info_b.ids.numel()} rows, {a} channels, {n_won} won",
+        **bound(resolve_bytes(rows_b, n_won, a, starts, i5, g6),
+                w * h * (4 * a + math.ceil(math.log2(longest + 1)))))
     for name, r in res.items():
         print(f"  {name}: {json.dumps(r)}", flush=True)
     _cuda.reset_launches()
@@ -277,20 +423,94 @@ def phase_main(dev, card):
 
 
 def phase_small_reference(dev):
-    """The same small scene on the card and on the CPU (plain versions)."""
+    """The same small scene on the card and on the CPU (plain versions),
+    through each backend that runs at this size."""
     rp_c = scenes.config4_many_objects(0.3, width=320, height=192,
-                                       triangles=3000)
-    fb_c = render(rp_c)
-    fb_g = render(rp_c.to(dev))
-    sync()
-    cg, dg = fb_g.color.cpu(), fb_g.depth.cpu()
-    assert_bit_equal(cg[..., 3], fb_c.color[..., 3], "small: alpha")
-    assert_bit_equal(dg, fb_c.depth, "small: depth")
-    err = max_err(cg, fb_c.color)
-    assert err <= 1e-3, f"small: color differs by {err}"
-    print(f"small scene (config4 3000 tris 320x192): card == CPU plain, "
-          f"coverage {float(cg[..., 3].mean())}, color max |d| {err}",
-          flush=True)
+                                       triangles=3000, device="cpu")
+    for backend in ("auto", "reference", "pallas"):
+        fb_c = render(rp_c, backend=backend)
+        fb_g = render(rp_c.to(dev), backend=backend)
+        sync()
+        cg, dg = fb_g.color.cpu(), fb_g.depth.cpu()
+        what = f"small {backend}"
+        assert_bit_equal(cg[..., 3], fb_c.color[..., 3], f"{what}: alpha")
+        assert_bit_equal(dg, fb_c.depth, f"{what}: depth")
+        err = max_err(cg, fb_c.color)
+        assert err <= 1e-3, f"{what}: color differs by {err}"
+        print(f"small scene (config4 3000 tris 320x192, {backend}): card == "
+              f"CPU plain, coverage {float(cg[..., 3].mean())}, color max "
+              f"|d| {err}", flush=True)
+
+
+def phase_backends(dev, card):
+    """The other backends at config 4's full size on the frames that
+    spill. Each path runs with the counters reset just before it and read
+    just after; then (depth, id) must agree bit for bit across the record
+    walk, the binned pass and the fused path on every frame."""
+    rp = scenes.config4_many_objects(0.0, device=dev)
+    w, h = rp.width, rp.height
+    passes = [dataclasses.replace(rp, transform=bench_transform(
+        rp.transform, i)) for i in BACKEND_FRAMES]
+
+    def gbuffer(p):
+        ps, _, attrs, _, _, _ = triangle_inputs(p)
+        return tb.binned_pipeline(ps, attrs, width=w, height=h,
+                                  pair_budget_factor=BUDGET)
+
+    paths = {
+        "pallas": lambda p: render(p, backend="pallas"),
+        "binned": lambda p: render(p, backend="binned"),
+        "flat": lambda p: render(dataclasses.replace(p, shading="flat")),
+        "binned_pipeline": gbuffer,
+    }
+    launches, ms = {}, {}
+    for name, fn in paths.items():
+        fn(passes[0])  # warm-up
+        sync()
+        _cuda.reset_launches()
+        times = []
+        for p in passes:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(p)
+            end.record()
+            sync()
+            times.append(start.elapsed_time(end))
+            color = out.color if name != "binned_pipeline" else out[2]
+            assert bool(torch.isfinite(color).all()), f"{name}: non-finite"
+        launches[name] = dict(_cuda.launches)
+        ms[name] = times
+        print(f"backend {name}: frames {list(BACKEND_FRAMES)}, launches "
+              f"{json.dumps(launches[name])}", flush=True)
+        print(f"  ms/frame (CUDA events, {card}): {times}; mean "
+              f"{sum(times) / len(times)}", flush=True)
+    need = {"pallas": ("fe", "visibility"),
+            "binned": ("fe", "fused", "visibility_merge", "resolve_merge"),
+            "flat": ("fe", "binned_vis"),
+            "binned_pipeline": ("binned_vis", "resolve")}
+    for name, kernels in need.items():
+        for k in kernels:
+            assert launches[name][k] > 0, f"{k} never launched on {name}"
+    assert launches["pallas"]["fused"] == 0
+    assert launches["flat"]["fused"] == 0
+
+    for i, p in zip(BACKEND_FRAMES, passes):
+        ps, chans, attrs, prm, has_light, has_texture = triangle_inputs(p)
+        d3, i3 = visibility_pallas(fe.to_setup(ps), width=w, height=h)
+        d5, i5 = tb.visibility_binned(ps, width=w, height=h,
+                                      pair_budget_factor=BUDGET)
+        d2, i2, _ = tb.fused_pipeline(
+            ps, attrs, prm, width=w, height=h, chans=chans,
+            has_light=has_light, has_texture=has_texture,
+            pair_budget_factor=BUDGET)
+        sync()
+        for what, d, ids in (("binned", d5, i5), ("fused", d2, i2)):
+            assert_bit_equal(ids, i3, f"frame {i}: {what} vs pallas ids")
+            assert_bit_equal(d, d3, f"frame {i}: {what} vs pallas depth")
+        print(f"frame {i}: (depth, id) equal across K3', K5 + K3 and K2; "
+              f"coverage {float((i3 >= 0).float().mean())}", flush=True)
+    return launches, ms
 
 
 def main():
@@ -320,6 +540,8 @@ def main():
     sync()
     phase_small_reference(dev)                               # phase 6
     sync()
+    backend_launches, _ = phase_backends(dev, card)          # phase 7
+    sync()
 
     src = "software_renderer_tpu_torch/csrc/"
     meta = {
@@ -333,10 +555,26 @@ def main():
                              ":110"),
         "resolve_merge": ("resolve_merge_kernel", "resolve_merge.cu",
                           "software_renderer_tpu/ops/binning.py:683"),
+        "visibility": ("visibility_kernel", "visibility_merge.cu",
+                       "software_renderer_tpu/ops/rasterize_pallas.py:110"),
+        "binned_vis": ("binned_vis_kernel", "binned_vis.cu",
+                       "software_renderer_tpu/ops/binning.py:607"),
+        "resolve": ("resolve_kernel", "resolve.cu",
+                    "software_renderer_tpu/ops/binning.py:663"),
     }
+    # Launches on the path that runs each kernel: the main path for K1-K4,
+    # the pallas backend for K3', flat shading for K5, and
+    # binned_pipeline(ps, attrs) for K6.
+    path_launches = {k: launches[k] for k in
+                     ("fe", "fused", "visibility_merge", "resolve_merge")}
+    path_launches["visibility"] = backend_launches["pallas"]["visibility"]
+    path_launches["binned_vis"] = backend_launches["flat"]["binned_vis"]
+    path_launches["resolve"] = backend_launches["binned_pipeline"]["resolve"]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     kernels = [dict(name=n, route="cuda", source=src + f, replaces=r,
-                    launches=launches[k], max_abs_err=res[k]["max_abs_err"],
-                    ms=res[k]["ms"], plain_ms=res[k]["plain_ms"])
+                    launches=path_launches[k],
+                    **{key: res[k][key] for key in keys})
                for k, (n, f, r) in meta.items()]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

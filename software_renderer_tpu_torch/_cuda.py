@@ -1,7 +1,8 @@
 """Build, load and launch the package's CUDA kernels (csrc/*.cu).
 
-All kernels compile with one ``nvcc`` call into one shared library with a
-plain C interface, loaded through ``ctypes`` at first use. The library's
+Each source compiles in its own ``nvcc`` process, all started together,
+and the objects link into one shared library with a plain C interface,
+loaded through ``ctypes`` at first use. The library's
 file name carries a hash of the sources, so an edited source builds anew
 and a stale library is never loaded. Nothing here runs at import: the CPU
 tests import every module on machines without ``nvcc`` or a card.
@@ -26,14 +27,16 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
+              "-fPIC")
 
 # Kernel launches since the last reset_launches(), one plain integer per
 # kernel. A wrapper adds one exactly where it launches its kernel;
 # "fused_seeded" counts the seeded launches among the "fused" ones.
 launches = {"fe": 0, "fused": 0, "fused_seeded": 0, "visibility_merge": 0,
-            "resolve_merge": 0}
+            "resolve_merge": 0, "visibility": 0, "binned_vis": 0,
+            "resolve": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -42,6 +45,9 @@ _SIGNATURES = {
                  _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     "sr_visibility_merge": (_P, _I, _P, _P, _I, _I, _I, _P, _P, _P),
     "sr_resolve_merge": (_P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P),
+    "sr_visibility": (_P, _I, _I, _I, _I, _P, _P, _P),
+    "sr_binned_vis": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "sr_resolve": (_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
 }
 
 _lib = None
@@ -80,14 +86,30 @@ def build(verbose: bool = False) -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(exist_ok=True)
+    nvcc = _nvcc()
     tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), *(str(s) for s in _sources() if s.suffix == ".cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    srcs = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [tmp.with_suffix(f".{s.stem}.o") for s in srcs]
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()), "-c",
+         "-o", str(obj), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(srcs, objs)]
+    try:
+        logs = [p.communicate()[0] for p in procs]
+        failed = [log for p, log in zip(procs, logs) if p.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        res = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                              *map(str, objs)], capture_output=True, text=True)
+        if res.returncode:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     if verbose:
-        print(res.stdout + res.stderr, flush=True)
+        print("".join(logs), flush=True)
     os.replace(tmp, so)
     return so
 

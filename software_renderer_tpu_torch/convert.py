@@ -4,7 +4,8 @@
 arrays (duck-typed: it only reads attributes and calls ``np.asarray``, so
 this module imports nothing of JAX), and :func:`render_pass_from_numpy`
 builds this package's ``RenderPass`` from them. With the two, a test
-feeds both packages the same scene.
+feeds both packages the same scene. These functions put their tensors on
+the card unless the caller passes ``device="cpu"`` (device.py).
 """
 
 from __future__ import annotations
@@ -14,8 +15,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from .device import or_default
 from .models.mesh import Mesh
 from .ops.frontend import PlanarSetup
+from .ops.setup import TriangleSetup
 from .ops.shading import Light
 from .ops.texture import Texture
 from .render import RenderPass
@@ -56,12 +59,14 @@ def static_fields_of(rp) -> dict:
     return out
 
 
-def render_pass_from_numpy(arrays: dict, *, device="cpu",
+def render_pass_from_numpy(arrays: dict, *, device=None,
                            texture_filter: str = "bilinear",
                            texture_wrap: str = "repeat",
                            **static_fields) -> RenderPass:
     """Build a RenderPass on ``device`` from the arrays of
     :func:`arrays_of` and the static fields of :func:`static_fields_of`."""
+    device = or_default(device)
+
     def t(name, dtype=torch.float32):
         a = arrays.get(name)
         if a is None:
@@ -86,10 +91,22 @@ def render_pass_from_numpy(arrays: dict, *, device="cpu",
                       **static_fields)
 
 
-def planar_setup_from_numpy(ps, *, device="cpu"):
+def _fields_from_numpy(cls, obj, device):
+    device = or_default(device)
+    return cls(**{
+        f.name: torch.from_numpy(np.array(getattr(obj, f.name))).to(device)
+        for f in dataclasses.fields(cls)})
+
+
+def planar_setup_from_numpy(ps, *, device=None) -> PlanarSetup:
     """This package's PlanarSetup from any object with a PlanarSetup's
     fields as arrays (a JAX ``PlanarSetup`` included), so that both
     packages can run on one shared front-end result."""
-    return PlanarSetup(**{
-        f.name: torch.from_numpy(np.array(getattr(ps, f.name))).to(device)
-        for f in dataclasses.fields(PlanarSetup)})
+    return _fields_from_numpy(PlanarSetup, ps, device)
+
+
+def triangle_setup_from_numpy(setup, *, device=None) -> TriangleSetup:
+    """This package's TriangleSetup from any object with a TriangleSetup's
+    fields as arrays (a JAX ``TriangleSetup`` included), so that both
+    packages rasterize one shared setup."""
+    return _fields_from_numpy(TriangleSetup, setup, device)

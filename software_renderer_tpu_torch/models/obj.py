@@ -11,11 +11,15 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..device import or_default
 from .mesh import Mesh, mesh_from_numpy
 
 
 def load_obj(path: str, abs_normal_colors: bool = True,
              device=None) -> Mesh:
+    """Read a Wavefront OBJ file into a Mesh on ``device`` (the card
+    unless the caller passes ``device="cpu"``)."""
+    device = or_default(device)
     positions, uvs, normals = [], [], []
     out_pos, out_uv, out_nrm, tri_indices = [], [], [], []
     dedup: dict[tuple, int] = {}

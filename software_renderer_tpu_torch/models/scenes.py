@@ -1,5 +1,6 @@
 """Demo scenes and the graded benchmark configs, as ``(time) ->
-RenderPass`` functions on a chosen device.
+RenderPass`` functions on a chosen device (the card unless the caller
+passes ``device="cpu"``; see device.py).
 
 Config 3 reads the Utah teapot from the checked-in assets/teapot.obj.
 The JAX package regenerates it from the Newell patches when the file is
@@ -12,6 +13,7 @@ from pathlib import Path
 
 import torch
 
+from ..device import or_default
 from ..ops import transforms as tf
 from ..ops.shading import Light
 from ..ops.texture import checkerboard
@@ -31,6 +33,7 @@ def reference_sphere(time, width: int = 512, height: int = 512,
                      device=None) -> RenderPass:
     """The reference's live demo: 13x13 UV sphere, inward normals,
     abs(normal) colors, the reference demo transform."""
+    device = or_default(device)
     mesh = shapes.uv_sphere(radius=0.2, segments=13,
                             inward_normals=True).to(device)
     return RenderPass(mesh=mesh,
@@ -42,6 +45,7 @@ def reference_sphere(time, width: int = 512, height: int = 512,
 def config1_flat_cube(time, width: int = 256, height: int = 256,
                       device=None) -> RenderPass:
     """Config 1: a single rotating face-colored cube at 256^2."""
+    device = or_default(device)
     mesh = shapes.box(size=0.8, face_colors=True).to(device)
     q = tf.quat_from_axis_angle(_axis([1.0, 1.0, 0.0], device),
                                 torch.as_tensor(time, dtype=torch.float32,
@@ -56,6 +60,7 @@ def config1_flat_cube(time, width: int = 256, height: int = 256,
 def config2_textured_cube(time, width: int = 512, height: int = 512,
                           device=None) -> RenderPass:
     """Config 2: textured Phong cube, z-buffer + backface culling."""
+    device = or_default(device)
     mesh = shapes.box(size=0.8, face_colors=False).to(device)
     q = tf.quat_from_axis_angle(_axis([1.0, 2.0, 0.5], device),
                                 torch.as_tensor(time, dtype=torch.float32,
@@ -73,6 +78,7 @@ def config3_phong_mesh(time, width: int = 1024, height: int = 1024,
                        device=None) -> RenderPass:
     """Config 3: the Utah teapot OBJ (~5k triangles), per-pixel Phong at
     1024^2."""
+    device = or_default(device)
     mesh = load_obj(str(TEAPOT_OBJ), device=device)
     q = tf.quat_from_axis_angle(_axis([1.0, 0.7, 0.2], device),
                                 torch.as_tensor(time, dtype=torch.float32,
@@ -91,6 +97,7 @@ def config4_many_objects(time, width: int = 1920, height: int = 1080,
                          device=None) -> RenderPass:
     """Config 4: the ~100k-triangle multi-object scene, Phong + bilinear
     texture at 1920x1080 (the north-star scene)."""
+    device = or_default(device)
     mesh = shapes.many_objects_scene(target_triangles=triangles).to(device)
     q = tf.quat_from_axis_angle(
         torch.tensor([0.0, 1.0, 0.0], device=device),

@@ -16,8 +16,18 @@ take their own bins), the ``permute``/``prune`` knobs, the profiling
 switches and the int32 key packing (a stable sort on the bin id keeps
 the id order).
 
-Kernels (csrc/): the fused kernel replaces ``_fused_kernel``
-(software_renderer_tpu/ops/binning.py:703) and the resolve merge replaces
+Two pipelines use the bins. :func:`fused_pipeline` (the main path)
+rasterizes and shades in one kernel over banded bins.
+:func:`binned_pipeline` (attribute-free frames, ``visibility_binned``)
+runs a visibility pass over whole-tile bins, merges the overflow
+triangles on top with the lex (depth, id) rule, and then resolves the
+winners' attribute planes into a G-buffer when it is given attributes.
+Both give the same pixels: the lex rule does not depend on the order.
+
+Kernels (csrc/), each replacing one of the JAX package's:
+``fused.cu`` ``_fused_kernel`` (software_renderer_tpu/ops/binning.py:703),
+``binned_vis.cu`` ``_binned_vis_kernel`` (:607), ``resolve.cu``
+``_resolve_kernel`` (:663) and ``resolve_merge.cu``
 ``_resolve_merge_kernel`` (:683). What bounds each and what its design
 does about it is noted at the wrapper.
 """
@@ -31,8 +41,8 @@ import torch
 from .. import _cuda
 from . import frontend as fe
 from .rasterize_kernel import (CHUNK, PLAIN_BLOCK, TILE_H, TILE_W,
-                               _pixel_centers, _poison_row,
-                               visibility_merge_kernel)
+                               _poison_row, visibility_merge_kernel)
+from .rasterize_ref import pixel_centers
 from .shading import _chan_offset, fused_epilogue, fused_output_channels
 
 # Max (tile, band) bins per binned triangle, in tile units; fused_pipeline
@@ -80,18 +90,19 @@ def build_bins(ps: fe.PlanarSetup, *, width: int, height: int,
     if tile_h % bands or (tile_h // bands) % 8:
         raise ValueError(f"bands={bands} must split tile_h={tile_h} into "
                          "8-row-aligned bands")
+    bx0, by0, bx1, by1 = ps.bx0, ps.by0, ps.bx1, ps.by1
     t = ps.num_triangles
-    dev = ps.bx0.device
+    dev = ps.valid.device
     gh = -(-height // tile_h)
     gw = -(-width // tile_w)
     nbins = gh * gw * bands
     bh = tile_h // bands
     gbands = gh * bands
-    tx0 = ps.bx0 // tile_w
-    tx1 = ps.bx1 // tile_w
-    ty0 = torch.clamp((ps.by0 - y_start) // bh, 0, gbands - 1)
-    ty1 = torch.clamp((ps.by1 - y_start) // bh, 0, gbands - 1)
-    in_slice = (ps.by1 >= y_start) & (ps.by0 < y_start + gh * tile_h)
+    tx0 = bx0 // tile_w
+    tx1 = bx1 // tile_w
+    ty0 = torch.clamp((by0 - y_start) // bh, 0, gbands - 1)
+    ty1 = torch.clamp((by1 - y_start) // bh, 0, gbands - 1)
+    in_slice = (by1 >= y_start) & (by0 < y_start + gh * tile_h)
     span_w = tx1 - tx0 + 1
     nspan = (span_w * (ty1 - ty0 + 1)).to(torch.int64)
     valid = ps.valid & in_slice
@@ -131,21 +142,18 @@ def gather_stream(table, ids, poison):
 # Overflow G-buffer resolve (K4)
 # ---------------------------------------------------------------------------
 
-def resolve_merge_plain(rows, tid, gb_in, *, width: int, height: int,
-                        y_start: int = 0):
-    """Plain version: where ``tid`` equals a row's id, that row's planes
-    evaluated at the pixel; ``gb_in`` elsewhere."""
-    n_channels = gb_in.shape[0]
-    gb = gb_in.clone()
+def _write_planes(gb, rows, row_keys, pixel_keys, hit, *, y_start: int):
+    """Where ``hit``, find each pixel's key among the ascending
+    ``row_keys`` and write that row's planes ``px * x + py * y + pc``,
+    evaluated at the pixel center, into ``gb`` [A, H, W] (in place)."""
+    n_channels, height, width = gb.shape
     if rows.shape[0] == 0:
         return gb
-    row_ids = rows[:, REC_BASE - 1].to(torch.int32).contiguous()
-    idx = torch.searchsorted(row_ids, tid.reshape(-1).contiguous())
-    idx = torch.clamp(idx, max=rows.shape[0] - 1)
-    hit = (row_ids[idx] == tid.reshape(-1)) & (tid.reshape(-1) >= 0)
-    pix = torch.nonzero(hit).squeeze(1)
+    idx = torch.clamp(torch.searchsorted(row_keys, pixel_keys),
+                      max=rows.shape[0] - 1)
+    pix = torch.nonzero(hit & (row_keys[idx] == pixel_keys)).squeeze(1)
     r = rows[idx[pix]]
-    xs, ys = _pixel_centers(width, height, y_start, rows.device)
+    xs, ys = pixel_centers(width, height, y_start, rows.device)
     xs = xs.expand(height, width).reshape(-1)[pix]
     ys = ys.expand(height, width).reshape(-1)[pix]
     flat = gb.view(n_channels, -1)
@@ -153,6 +161,16 @@ def resolve_merge_plain(rows, tid, gb_in, *, width: int, height: int,
         p = REC_BASE + 3 * a
         flat[a, pix] = r[:, p] * xs + r[:, p + 1] * ys + r[:, p + 2]
     return gb
+
+
+def resolve_merge_plain(rows, tid, gb_in, *, width: int, height: int,
+                        y_start: int = 0):
+    """Plain version: where ``tid`` equals a row's id, that row's planes
+    evaluated at the pixel; ``gb_in`` elsewhere."""
+    q = tid.reshape(-1).contiguous()
+    return _write_planes(gb_in.clone(), rows,
+                         rows[:, REC_BASE - 1].to(torch.int32).contiguous(),
+                         q, q >= 0, y_start=y_start)
 
 
 def resolve_merge_kernel(rows, tid, gb_in, *, width: int, height: int,
@@ -221,25 +239,24 @@ def _pad_frame(x, hp: int, wp: int, value):
     return torch.nn.functional.pad(x, (0, wp - w, 0, hp - h), value=value)
 
 
-def fused_plain(rows, bin_start, params, *, width: int, height: int,
-                chans, has_light: bool, has_texture: bool, bands: int,
-                y_start: int = 0, tile_h: int = TILE_H,
-                tile_w: int = TILE_W, seeds=None):
-    """Plain version of the fused kernel.
+def _walk_bins_plain(rows, bin_start, *, width: int, height: int,
+                     n_channels: int, bands: int, y_start: int, tile_h: int,
+                     tile_w: int, seeds=None):
+    """The bin walk of the plain versions of K2 and K5.
 
     Per pixel of each bin: the lex (depth, id) minimum over the seed (or
     the clear value) and the bin's records that cover the pixel, taken
-    PLAIN_BLOCK records at a time; the winner's attribute planes; then
-    :func:`ops.shading.fused_epilogue` over the whole frame. Without
-    seeds this equals the strict ``<`` walk in ascending id order.
+    PLAIN_BLOCK records at a time, and the winner's ``n_channels``
+    attribute planes. Without seeds this equals the strict ``<`` walk in
+    ascending id order. Returns (z [H, W], id [H, W], planes [A, H, W]).
     """
     dev = rows.device
     gh = -(-height // tile_h)
     gw = -(-width // tile_w)
     hp, wp = gh * tile_h, gw * tile_w
     nbins = gh * gw * bands
-    a = sum(s for _, s in chans)
-    xs, ys = _pixel_centers(wp, hp, y_start, dev)
+    a = n_channels
+    xs, ys = pixel_centers(wp, hp, y_start, dev)
     xs = _bin_slabs(xs.expand(hp, wp), gh, gw, bands, tile_h, tile_w)
     ys = _bin_slabs(ys.expand(hp, wp), gh, gw, bands, tile_h, tile_w)
     xs, ys = xs[:, None], ys[:, None]                 # [nbins, 1, bh, tw]
@@ -283,7 +300,9 @@ def fused_plain(rows, bin_start, params, *, width: int, height: int,
         better = has & ((zwin < z) | ((zwin == z) & (bid < ids)))
         z = torch.where(better, zwin, z)
         ids = torch.where(better, bid, ids)
-        planes = r[:, :, REC_BASE:, 0, 0]              # [nbins, K, 3A]
+        if not a:
+            continue
+        planes = r[:, :, REC_BASE:REC_BASE + 3 * a, 0, 0]  # [nbins, K, 3A]
         win = torch.gather(
             planes, 1, kwin.reshape(nbins, -1, 1).expand(-1, -1, 3 * a))
         win = win.reshape(*kwin.shape, 3 * a)           # [nbins, bh, tw, 3A]
@@ -293,9 +312,19 @@ def fused_plain(rows, bin_start, params, *, width: int, height: int,
             acc[:, c] = torch.where(better, val, acc[:, c])
     unbin = lambda s: _unbin_slabs(s, gh, gw, bands, tile_h,
                                    tile_w)[..., :height, :width]
-    z = unbin(z)
-    ids = unbin(ids)
-    acc = unbin(acc.transpose(0, 1))
+    return unbin(z), unbin(ids), unbin(acc.transpose(0, 1))
+
+
+def fused_plain(rows, bin_start, params, *, width: int, height: int,
+                chans, has_light: bool, has_texture: bool, bands: int,
+                y_start: int = 0, tile_h: int = TILE_H,
+                tile_w: int = TILE_W, seeds=None):
+    """Plain version of the fused kernel: :func:`_walk_bins_plain`, then
+    :func:`ops.shading.fused_epilogue` over the whole frame."""
+    z, ids, acc = _walk_bins_plain(
+        rows, bin_start, width=width, height=height,
+        n_channels=sum(s for _, s in chans), bands=bands, y_start=y_start,
+        tile_h=tile_h, tile_w=tile_w, seeds=seeds)
     outs = fused_epilogue(list(acc.unbind(0)), ids >= 0, params, chans=chans,
                           has_light=has_light, has_texture=has_texture)
     return z, ids, torch.stack(outs)
@@ -427,3 +456,192 @@ def fused_pipeline(ps: fe.PlanarSetup, attrs, params, *, width: int,
                         has_texture=has_texture, bands=bands,
                         y_start=y_start, tile_h=tile_h, tile_w=tile_w,
                         seeds=seeds)
+
+
+# ---------------------------------------------------------------------------
+# Binned visibility (K5) and G-buffer resolve (K6)
+# ---------------------------------------------------------------------------
+
+def _grid(width: int, height: int, tile_h: int, tile_w: int, bands: int):
+    gw = -(-width // tile_w)
+    return -(-height // tile_h) * gw * bands, gw
+
+
+def binned_vis_plain(rows, bin_start, *, width: int, height: int,
+                     y_start: int = 0, tile_h: int = TILE_H,
+                     tile_w: int = TILE_W, bands: int = 1):
+    """Plain version of the binned visibility kernel: the bin walk of
+    :func:`_walk_bins_plain` with no seeds and no channels."""
+    z, ids, _ = _walk_bins_plain(rows, bin_start, width=width, height=height,
+                                 n_channels=0, bands=bands, y_start=y_start,
+                                 tile_h=tile_h, tile_w=tile_w)
+    return z, ids
+
+
+def binned_vis_kernel(rows, bin_start, *, width: int, height: int,
+                      y_start: int = 0, tile_h: int = TILE_H,
+                      tile_w: int = TILE_W, bands: int = 1):
+    """Visibility over the CSR bin lists: per pixel, the strict ``<``
+    walk over its bin's records in ascending id (first drawn wins ties),
+    with no bbox clamp (binned triangles are coverage-safe). Every pixel
+    is written, empty bins included.
+
+    rows: [n_pairs, >= 11] float32 stream rows in bin order (only the
+    first 11 columns are read); bin_start: [nbins + 1] int32. Returns
+    (z [H, W] float32, id [H, W] int32). CPU tensors run
+    :func:`binned_vis_plain`; CUDA tensors launch csrc/binned_vis.cu.
+
+    What bounds it on the card: arithmetic, about 18 float operations per
+    (pixel, record) pair. The design is K2's without the accumulators and
+    the epilogue: one block of 256 threads per 16-row slab of a bin, 8
+    pixels per thread with depth and id in registers, the bin's records
+    staged in shared memory and walked in list order.
+    """
+    if rows.device.type == "cpu":
+        return binned_vis_plain(rows, bin_start, width=width, height=height,
+                                y_start=y_start, tile_h=tile_h,
+                                tile_w=tile_w, bands=bands)
+    if tile_w != TILE_W or tile_h % bands or (tile_h // bands) % SLAB_H:
+        raise ValueError(f"the CUDA binned kernels take {TILE_W}-wide tiles "
+                         f"and bands that are multiples of {SLAB_H} rows")
+    dev = rows.device
+    nbins, gw = _grid(width, height, tile_h, tile_w, bands)
+    _cuda.require(rows, torch.float32, "rows", ndim=2)
+    if rows.shape[1] < REC_BASE:
+        raise ValueError(f"rows must have at least {REC_BASE} columns")
+    _cuda.require(bin_start, torch.int32, "bin_start", device=dev,
+                  shape=(nbins + 1,))
+    z = torch.empty((height, width), dtype=torch.float32, device=dev)
+    ids = torch.empty((height, width), dtype=torch.int32, device=dev)
+    lib = _cuda.lib()
+    _cuda.launches["binned_vis"] += 1
+    _cuda.check(lib.sr_binned_vis(
+        rows.data_ptr(), rows.shape[1], bin_start.data_ptr(), nbins, width,
+        height, y_start, tile_h, bands, gw, z.data_ptr(), ids.data_ptr(),
+        _cuda.stream_of(rows)))
+    return z, ids
+
+
+# Bin-list search key: bin * ID_SPAN + (id + 1) ascends along the CSR rows
+# (ids are below 2^24, exact in the float32 id column).
+ID_SPAN = 1 << 25
+
+
+def resolve_plain(rows, bin_start, tid, *, n_channels: int, width: int,
+                  height: int, y_start: int = 0, tile_h: int = TILE_H,
+                  tile_w: int = TILE_W, bands: int = 1):
+    """Plain version of the resolve kernel: each pixel's winner looked up
+    in its own bin's list (one search over (bin, id) keys); its planes
+    where found, 0 elsewhere."""
+    dev = rows.device
+    nbins, gw = _grid(width, height, tile_h, tile_w, bands)
+    counts = (bin_start[1:] - bin_start[:-1]).long()
+    row_bin = torch.repeat_interleave(torch.arange(nbins, device=dev), counts)
+    row_keys = row_bin * ID_SPAN + rows[:, REC_BASE - 1].long() + 1
+    py = torch.arange(height, device=dev)[:, None]
+    px = torch.arange(width, device=dev)[None, :]
+    pix_bin = (((py // tile_h) * gw + px // tile_w) * bands
+               + (py % tile_h) // (tile_h // bands))
+    q = tid.reshape(-1).long()
+    keys = pix_bin.reshape(-1) * ID_SPAN + q + 1
+    gb = torch.zeros((n_channels, height, width), device=dev)
+    return _write_planes(gb, rows, row_keys.contiguous(), keys.contiguous(),
+                         q >= 0, y_start=y_start)
+
+
+def resolve_kernel(rows, bin_start, tid, *, n_channels: int, width: int,
+                   height: int, y_start: int = 0, tile_h: int = TILE_H,
+                   tile_w: int = TILE_W, bands: int = 1):
+    """G-buffer resolve: per pixel, the attribute planes of its winner
+    ``tid`` evaluated at the pixel center where the winner is in the
+    pixel's bin, and 0 where it is not (uncovered pixels, and overflow
+    winners that :func:`resolve_merge_kernel` fills afterwards).
+
+    rows: [n_pairs, 11 + 3A] float32 stream rows in bin order; bin_start:
+    [nbins + 1] int32; tid: [H, W] int32. Returns [A, H, W] float32. CPU
+    tensors run :func:`resolve_plain`; CUDA tensors launch
+    csrc/resolve.cu.
+
+    What bounds it on the card: memory, one id read and A plane writes
+    per pixel. The TPU kernel walks every record of a tile's list for
+    every pixel; a bin lists each id once and in ascending order, so here
+    a pixel binary-searches its winner in its bin's CSR slice.
+    """
+    if rows.device.type == "cpu":
+        return resolve_plain(rows, bin_start, tid, n_channels=n_channels,
+                             width=width, height=height, y_start=y_start,
+                             tile_h=tile_h, tile_w=tile_w, bands=bands)
+    if tile_w != TILE_W or tile_h % bands:
+        raise ValueError(f"the CUDA resolve kernel takes {TILE_W}-wide "
+                         "tiles split into whole bands")
+    dev = rows.device
+    nbins, gw = _grid(width, height, tile_h, tile_w, bands)
+    _cuda.require(rows, torch.float32, "rows", ndim=2)
+    if rows.shape[1] != REC_BASE + 3 * n_channels:
+        raise ValueError(f"rows must be [N, {REC_BASE + 3 * n_channels}]")
+    _cuda.require(bin_start, torch.int32, "bin_start", device=dev,
+                  shape=(nbins + 1,))
+    _cuda.require(tid, torch.int32, "tid", device=dev, shape=(height, width))
+    gb = torch.empty((n_channels, height, width), dtype=torch.float32,
+                     device=dev)
+    lib = _cuda.lib()
+    _cuda.launches["resolve"] += 1
+    _cuda.check(lib.sr_resolve(
+        rows.data_ptr(), rows.shape[1], n_channels, bin_start.data_ptr(),
+        tid.data_ptr(), width, height, y_start, tile_h, bands, gw,
+        gb.data_ptr(), _cuda.stream_of(rows)))
+    return gb
+
+
+def binned_pipeline(ps: fe.PlanarSetup, attrs=None, *, width: int,
+                    height: int, y_start: int = 0, tile_h: int = TILE_H,
+                    tile_w: int = TILE_W, chunk: int = CHUNK,
+                    kmax: int = KMAX,
+                    pair_budget_factor: float = PAIR_BUDGET_FACTOR):
+    """Binned raster path over whole tiles (one band).
+
+    attrs: optional list over the channels of per-corner (v1, v2, v3) [T]
+    columns, as :func:`fused_pipeline` takes them. Returns (depth [H, W],
+    tri_id [H, W], G-buffer [H, W, A] or None).
+
+    The visibility kernel walks the bins; overflow triangles (unsafe,
+    past kmax or the pair budget) are merged on top with the lex (depth,
+    id) rule by the record kernel. With attributes, the resolve kernel
+    evaluates the binned winners' planes and the resolve merge adds the
+    overflow winners'. The JAX package's static fallback for scenes whose
+    packed sort keys overflow int32, and its overflow waves, exist for
+    its key packing and static grid and have no counterpart here.
+    """
+    info = build_bins(ps, width=width, height=height, y_start=y_start,
+                      tile_h=tile_h, tile_w=tile_w, chunk=chunk, kmax=kmax,
+                      pair_budget_factor=pair_budget_factor)
+    table, a, poison = fe.stream_table_planar(
+        ps, fe.attribute_plane_cols(ps, attrs or []))
+    rows = gather_stream(table, info.ids, poison).contiguous()
+    geo = dict(width=width, height=height, y_start=y_start)
+    depth, tri_id = binned_vis_kernel(rows, info.bin_start, tile_h=tile_h,
+                                      tile_w=tile_w, **geo)
+    if info.n_overflow:
+        dev = table.device
+        ov = torch.nonzero(info.overflow_mask).squeeze(1).to(torch.int32)
+        rec = gather_stream(fe.pack_records_planar(ps, chunk), ov,
+                            _poison_row(dev)).contiguous()
+        depth, tri_id = visibility_merge_kernel(rec, depth, tri_id, **geo)
+    if not a:
+        return depth, tri_id, None
+    gb = resolve_kernel(rows, info.bin_start, tri_id, n_channels=a,
+                        tile_h=tile_h, tile_w=tile_w, **geo)
+    if info.n_overflow:
+        ov_rows = gather_stream(table, ov, poison).contiguous()
+        gb = resolve_merge_kernel(ov_rows, tri_id, gb, **geo)
+    return depth, tri_id, gb.permute(1, 2, 0)
+
+
+def visibility_binned(ps: fe.PlanarSetup, *, width: int, height: int,
+                      y_start: int = 0, **kw):
+    """Binned visibility pass (:func:`binned_pipeline` without
+    attributes): (depth [H, W], tri_id [H, W]), the contract of
+    ops/rasterize_ref.visibility_ref."""
+    depth, tri_id, _ = binned_pipeline(ps, None, width=width,
+                                       height=height, y_start=y_start, **kw)
+    return depth, tri_id

@@ -17,8 +17,8 @@ import dataclasses
 import torch
 
 from .clip import CLIP_EPS
-from .rasterize_kernel import _poison_row
-from .setup import coverage_safe
+from .rasterize_kernel import pack_records
+from .setup import TriangleSetup, coverage_safe
 from .vertex import round_half_away
 
 
@@ -190,6 +190,18 @@ def planar_front(corners_c, transform, width: int, height: int, *,
         front_face_ccw=front_face_ccw, near_eps=near_eps))
 
 
+def to_setup(ps: PlanarSetup) -> TriangleSetup:
+    """Re-pack the planar columns into the array TriangleSetup (the same
+    values, pure layout), for the ``reference`` and ``pallas`` backends."""
+    row = lambda *cols: torch.stack(cols, dim=-1)
+    return TriangleSetup(
+        coef=torch.stack([row(ps.a0, ps.a1, ps.a2), row(ps.b0, ps.b1, ps.b2),
+                          row(ps.c0, ps.c1, ps.c2)], dim=-2),
+        zplane=row(ps.zx, ps.zy, ps.zc), inv_area=ps.inv_area,
+        bbox=row(ps.bx0, ps.by0, ps.bx1, ps.by1), valid=ps.valid,
+        area2=ps.area2, safe=ps.safe)
+
+
 def attribute_plane_cols(ps: PlanarSetup, chan_vals):
     """Per-corner attribute columns -> affine plane columns (x, y, const
     per channel), ``(coef . vals) * inv_area``."""
@@ -229,21 +241,7 @@ def stream_table_planar(ps: PlanarSetup, plane_cols):
 
 
 def pack_records_planar(ps: PlanarSetup, chunk: int):
-    """[T_pad, 16] raster records for the overflow visibility kernel
-    (bbox in columns 10-13, id in column 14), padded to a multiple of
-    ``chunk`` with poison rows."""
-    t = ps.num_triangles
-    dev = ps.a0.device
-    f32 = lambda a: a.to(torch.float32)
-    rec = torch.stack([
-        ps.a0, ps.a1, ps.b0, ps.b1, ps.c0, ps.c1, ps.abs_d,
-        ps.zx, ps.zy, ps.zc, f32(ps.bx0), f32(ps.by0), f32(ps.bx1),
-        f32(ps.by1), torch.arange(t, dtype=torch.float32, device=dev),
-        torch.zeros(t, dtype=torch.float32, device=dev)], dim=1)
-    poison = _poison_row(dev)
-    rec = torch.where(ps.valid[:, None], rec, poison)
-    pad = (-t) % chunk
-    if pad or t == 0:
-        n_fill = max(pad, chunk if t == 0 else pad)
-        rec = torch.cat([rec, poison.expand(n_fill, -1)], dim=0)
-    return rec
+    """[T_pad, 16] raster records of the planar front-end (bbox in
+    columns 10-13, id in column 14): ops/rasterize_kernel.py
+    ``pack_records`` of :func:`to_setup`."""
+    return pack_records(to_setup(ps), chunk)

@@ -1,17 +1,23 @@
-"""Overflow visibility merge and the raster record layout.
+"""Raster records and the record-walking visibility kernels.
 
-Counterpart of the JAX package's ops/rasterize_pallas.py. Only the merge
-+ lex-tie variant of its ``_visibility_kernel`` is on the ported path
-(the spill frames of ops/binning.py); the ``merge=False`` variant serves
-the unbinned ``pallas`` backend, ROADMAP.md Queue 2 item 2.
+Counterpart of the JAX package's ops/rasterize_pallas.py. Its
+``_visibility_kernel`` (software_renderer_tpu/ops/rasterize_pallas.py:110)
+runs in two modes, and csrc/visibility_merge.cu keeps both as template
+instances of one kernel:
 
-The CUDA kernel (csrc/visibility_merge.cu) replaces
-``_visibility_kernel`` (software_renderer_tpu/ops/rasterize_pallas.py:110).
-What bounds it on the card: arithmetic, about 20 float operations per
+* merge + lex ties (:func:`visibility_merge_kernel`): overflow records
+  merged into an existing (z, id) buffer with the lexicographic (depth,
+  id) rule, on the spill frames of ops/binning.py;
+* clear (:func:`visibility_kernel`, the ``pallas`` backend's
+  :func:`visibility_pallas`): every record of the frame into the clear
+  buffer, strict ``<`` in ascending id, so the first drawn wins ties.
+
+What bounds both on the card: arithmetic, about 24 float operations per
 (pixel, record) pair, over every record whose bbox meets a 16x16 pixel
 block. The design stages records in shared memory, skips a record for a
 whole block when its bbox misses the block, and drops the TPU's waves:
-the lex (depth, id) minimum does not depend on record order.
+the lex minimum does not depend on record order, and the clear mode
+walks the records in the order given.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from __future__ import annotations
 import torch
 
 from .. import _cuda
+from .rasterize_ref import pixel_centers, record_windows
+from .setup import TriangleSetup
 
 # Tile geometry of the binned layout (see ops/binning.py).
 TILE_H = 64
@@ -44,22 +52,45 @@ def _poison_row(device=None) -> torch.Tensor:
     return row
 
 
-def _pixel_centers(width: int, height: int, y_start: int, device):
-    xs = torch.arange(width, dtype=torch.float32, device=device) + 0.5
-    ys = (torch.arange(height, dtype=torch.float32, device=device)
-          + float(y_start)) + 0.5
-    return xs[None, :], ys[:, None]
+def pack_records(setup: TriangleSetup, chunk: int = CHUNK) -> torch.Tensor:
+    """[T_pad, REC_WIDTH] raster records in ascending id, invalid
+    triangles poisoned, padded with poison rows to a multiple of
+    ``chunk`` (at least one chunk)."""
+    t = setup.num_triangles
+    dev = setup.coef.device
+    rec = torch.cat([
+        setup.coef[:, 0, 0:2], setup.coef[:, 1, 0:2], setup.coef[:, 2, 0:2],
+        (torch.abs(setup.area2) * setup.valid)[:, None], setup.zplane,
+        setup.bbox.to(torch.float32),
+        torch.arange(t, dtype=torch.float32, device=dev)[:, None],
+        torch.zeros((t, 1), dtype=torch.float32, device=dev)], dim=1)
+    poison = _poison_row(dev)
+    rec = torch.where(setup.valid[:, None], rec, poison)
+    pad = (-t) % chunk
+    if pad or t == 0:
+        n_fill = max(pad, chunk if t == 0 else pad)
+        rec = torch.cat([rec, poison.expand(n_fill, -1)], dim=0)
+    return rec
 
 
 def visibility_merge_plain(rec, z_in, id_in, *, width: int, height: int,
                            y_start: int = 0):
     """Plain version: lex (depth, id) minimum over the seed and every
     record that covers a pixel (bbox-clamped edge test), PLAIN_BLOCK
-    records at a time."""
-    xs, ys = _pixel_centers(width, height, y_start, rec.device)
+    records at a time, each block over the window of its records' bboxes
+    (ops/rasterize_ref.py ``record_windows``: no pixel outside it can
+    change)."""
+    xs_f, ys_f = pixel_centers(width, height, y_start, rec.device)
     z = z_in.clone()
     ids = id_in.clone()
-    for j in range(0, rec.shape[0], PLAIN_BLOCK):
+    big = torch.iinfo(torch.int32).max
+    windows = record_windows(rec[:, 10:14], PLAIN_BLOCK, width, height,
+                             y_start)
+    for i, (r0, r1, c0, c1) in enumerate(windows):
+        if r0 >= r1 or c0 >= c1:
+            continue
+        j = i * PLAIN_BLOCK
+        xs, ys = xs_f[:, c0:c1], ys_f[r0:r1]
         r = rec[j:j + PLAIN_BLOCK, :, None, None]          # [K, 16, 1, 1]
         e0 = r[:, 0] * xs + r[:, 2] * ys + r[:, 4]
         e1 = r[:, 1] * xs + r[:, 3] * ys + r[:, 5]
@@ -72,11 +103,11 @@ def visibility_merge_plain(rec, z_in, id_in, *, width: int, height: int,
         cand = torch.where(ok, depth, float("inf"))
         tri = r[:, 14].to(torch.int32)               # [K, 1, 1]
         bz = cand.min(dim=0).values
-        big = torch.iinfo(torch.int32).max
         bid = torch.where(ok & (cand == bz), tri, big).min(dim=0).values
-        better = (bz < z) | ((bz == z) & (bid < ids))
-        z = torch.where(better, bz, z)
-        ids = torch.where(better, bid, ids)
+        z_w, id_w = z[r0:r1, c0:c1], ids[r0:r1, c0:c1]
+        better = (bz < z_w) | ((bz == z_w) & (bid < id_w))
+        z[r0:r1, c0:c1] = torch.where(better, bz, z_w)
+        ids[r0:r1, c0:c1] = torch.where(better, bid, id_w)
     return z, ids
 
 
@@ -109,3 +140,49 @@ def visibility_merge_kernel(rec, z_in, id_in, *, width: int, height: int,
         width, height, y_start, z.data_ptr(), ids.data_ptr(),
         _cuda.stream_of(rec)))
     return z, ids
+
+
+def visibility_plain(rec, *, width: int, height: int, y_start: int = 0):
+    """Plain version of the clear mode: :func:`visibility_merge_plain`
+    from the clear buffer (inf, -1). With the records in ascending id the
+    lex (depth, id) rule and the strict ``<`` walk choose the same winner
+    at every pixel (a later record never has the lower id); the CPU tests
+    hold this against the reference visibility pass bit for bit."""
+    z0 = torch.full((height, width), float("inf"), device=rec.device)
+    i0 = torch.full((height, width), -1, dtype=torch.int32, device=rec.device)
+    return visibility_merge_plain(rec, z0, i0, width=width, height=height,
+                                  y_start=y_start)
+
+
+def visibility_kernel(rec, *, width: int, height: int, y_start: int = 0):
+    """Rasterize raster records ([N, REC_WIDTH] float32, ascending id,
+    -1 rows inert) into a clear buffer with the strict ``<`` rule.
+    Returns (z [H, W] float32, id [H, W] int32).
+
+    CPU tensors run :func:`visibility_plain`; CUDA tensors launch the
+    clear mode of csrc/visibility_merge.cu.
+    """
+    if rec.device.type == "cpu":
+        return visibility_plain(rec, width=width, height=height,
+                                y_start=y_start)
+    _cuda.require(rec, torch.float32, "rec", ndim=2)
+    if rec.shape[1] != REC_WIDTH:
+        raise ValueError(f"rec must be [N, {REC_WIDTH}]")
+    z = torch.empty((height, width), dtype=torch.float32, device=rec.device)
+    ids = torch.empty((height, width), dtype=torch.int32, device=rec.device)
+    lib = _cuda.lib()
+    _cuda.launches["visibility"] += 1
+    _cuda.check(lib.sr_visibility(
+        rec.data_ptr(), rec.shape[0], width, height, y_start, z.data_ptr(),
+        ids.data_ptr(), _cuda.stream_of(rec)))
+    return z, ids
+
+
+def visibility_pallas(setup: TriangleSetup, *, width: int, height: int,
+                      y_start: int = 0, chunk: int = CHUNK):
+    """The ``pallas`` backend's visibility pass: every triangle's record,
+    in ascending id, through :func:`visibility_kernel`. Returns (depth
+    [H, W], tri_id [H, W]), the contract of
+    ops/rasterize_ref.visibility_ref."""
+    return visibility_kernel(pack_records(setup, chunk), width=width,
+                             height=height, y_start=y_start)

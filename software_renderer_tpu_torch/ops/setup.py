@@ -1,18 +1,46 @@
-"""Coverage-safety certificate of triangle setup.
+"""Triangle setup records and their coverage-safety certificate.
 
 Edge functions built from integer-rounded pixel coordinates are exact in
 float32 while every product stays below 2^24; a sliver with vertices far
 off screen can break that premise and let rounded edge constants cover
 pixels outside the triangle's bbox. ``coverage_safe`` certifies per
 triangle that this cannot happen; uncertified triangles go to the
-bbox-clamping overflow kernels (ops/binning.py). Only the certificate is
-ported here: the array ``TriangleSetup`` serves the clip path and the
-non-binned backends, which are not ported yet.
+bbox-clamping overflow kernels (ops/binning.py).
+
+``TriangleSetup`` is the array layout of the same per-triangle data that
+the planar front-end keeps as columns; ops/frontend.py ``to_setup``
+re-packs one into the other, so every backend shares one front-end's
+coverage decisions. The JAX package's ``triangle_setup*`` functions serve
+the near-plane clip path and wait for it (ROADMAP.md Queue 1 item 2).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+
+
+@dataclasses.dataclass
+class TriangleSetup:
+    """Per-triangle rasterization data (leading dim [T]).
+
+    Edge j is ``coef[t, 0, j] * x + coef[t, 1, j] * y + coef[t, 2, j]``
+    (sign-folded: inside when every edge is >= 0); depth is
+    ``zplane[t, 0] * x + zplane[t, 1] * y + zplane[t, 2]``.
+    """
+
+    coef: torch.Tensor       # [T, 3, 3] float32
+    zplane: torch.Tensor     # [T, 3] float32
+    inv_area: torch.Tensor   # [T] float32, 1/|D| (0 where invalid)
+    bbox: torch.Tensor       # [T, 4] int32 x0 y0 x1 y1, inclusive, clamped
+    valid: torch.Tensor      # [T] bool
+    area2: torch.Tensor      # [T] float32, signed 2*area D
+    safe: torch.Tensor       # [T] bool, :func:`coverage_safe` or invalid
+
+    @property
+    def num_triangles(self) -> int:
+        return self.coef.shape[0]
 
 # See the JAX package's ops/setup.py for the derivation of each bound.
 EXACT_LIMIT = 2.0 ** 21

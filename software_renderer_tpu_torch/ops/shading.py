@@ -1,5 +1,7 @@
-"""Fragment shading of the fused path: channel plans, the per-frame
-parameter row, the in-kernel epilogue and the texture tail.
+"""Fragment shading: channel plans, the deferred shading of a visibility
+buffer (``shade``, ``shade_gbuffer``: the ``reference`` and ``pallas``
+backends and attribute-free binned frames), and the fused path's
+per-frame parameter row, in-kernel epilogue and texture tail.
 
 ``fused_epilogue`` is written as plain elementwise torch over lists of
 2D planes. It is the plain version of the epilogue that the CUDA fused
@@ -15,7 +17,9 @@ from typing import Optional
 
 import torch
 
-from .texture import Texture, sample_texture_planes
+from ..framebuffer import NO_TRIANGLE
+from .resolve import barycentrics_at_pixels, interpolate_attribute
+from .texture import Texture, sample_texture, sample_texture_planes
 
 
 @dataclasses.dataclass
@@ -63,6 +67,102 @@ def attribute_channels(shading: str, has_colors: bool, has_light: bool):
             chans.append(("normal", 3))
         return chans + [("uv", 2)]
     raise ValueError(f"unknown shading mode {shading!r}")
+
+
+def gather_attribute_values(shading: str, tris, colors=None, normals=None,
+                            uvs=None, has_light: bool = True):
+    """Per-vertex attributes stacked per the channel plan: ([T, 3, A]
+    or None when the plan has no channels, chans)."""
+    chans = attribute_channels(shading, colors is not None, has_light)
+    src = {"rgb": colors, "normal": normals, "uv": uvs}
+    parts = [src[name][tris] for name, _ in chans]
+    return (torch.cat(parts, dim=-1) if parts else None), chans
+
+
+def shade_gbuffer(gb, covered, *, shading: str, chans,
+                  light: Optional[Light] = None,
+                  texture: Optional[Texture] = None,
+                  flat_color=(1.0, 1.0, 1.0), normal_matrix=None,
+                  view_dir=(0.0, 0.0, -1.0)):
+    """Lighting and texturing from an interpolated G-buffer.
+
+    gb: [H, W, A] laid out per ``chans`` (None when ``chans`` is empty);
+    covered: [H, W] bool. Returns [H, W, 4] RGBA, transparent black where
+    uncovered.
+    """
+    offsets, off = {}, 0
+    for name, size in chans:
+        offsets[name] = (off, off + size)
+        off += size
+    chan = lambda name: gb[..., offsets[name][0]:offsets[name][1]]
+    f = lambda v: torch.as_tensor(v, dtype=torch.float32,
+                                  device=covered.device)
+    if shading == "flat" or ("rgb" not in offsets
+                             and shading in ("phong", "textured")):
+        base = f(flat_color).expand(covered.shape + (3,))
+    elif "rgb" in offsets:
+        base = chan("rgb")
+    else:
+        raise ValueError(f"no color source for shading {shading!r}")
+    if shading == "textured":
+        tex_rgb = sample_texture(texture, chan("uv"))[..., :3]
+        base = tex_rgb if "rgb" not in offsets else base * tex_rgb
+    if shading in ("phong", "textured") and light is not None \
+            and "normal" in offsets:
+        n = chan("normal")
+        if normal_matrix is not None:
+            n = n @ normal_matrix.T
+        n = _normalize(n)
+        l = -_normalize(f(light.direction))
+        v = _normalize(f(view_dir))
+        ndotl = torch.clamp((n * l).sum(-1, keepdim=True), min=0.0)
+        h = _normalize(l + v)
+        ndoth = torch.clamp((n * h).sum(-1, keepdim=True), min=0.0)
+        spec = torch.pow(ndoth, light.shininess) * torch.sign(ndotl)
+        rgb = (base * (light.ambient + light.color * ndotl)
+               + light.specular * spec)
+    else:
+        rgb = base
+    alpha = covered.to(torch.float32)[..., None]
+    rgb = torch.where(covered[..., None], rgb, 0.0)
+    return torch.cat([rgb, alpha], dim=-1)
+
+
+def shade(setup, tri_id, tris, *, shading: str, colors=None, normals=None,
+          uvs=None, light: Optional[Light] = None,
+          texture: Optional[Texture] = None, flat_color=(1.0, 1.0, 1.0),
+          normal_matrix=None, view_dir=(0.0, 0.0, -1.0), y_start: int = 0,
+          w_tri=None, corner_attrs=None):
+    """Shade a frame from its visibility buffer.
+
+    setup: the TriangleSetup the ids index; tri_id: [H, W] int32; tris:
+    [T, 3] vertex indices into the per-vertex ``colors``/``normals``/
+    ``uvs``. Interpolates the plan's channels with the winners'
+    barycentric weights, then :func:`shade_gbuffer`. Returns [H, W, 4].
+    """
+    if w_tri is not None:
+        raise NotImplementedError(
+            "perspective-correct weights are not ported to PyTorch yet "
+            "(ROADMAP.md Queue 1 item 3, perspective-correct attributes)")
+    if corner_attrs is not None:
+        raise NotImplementedError(
+            "clipped corner attributes are not ported to PyTorch yet "
+            "(ROADMAP.md Queue 1 item 2, clip)")
+    if shading == "vertex" and colors is None:
+        raise ValueError("'vertex' shading requires per-vertex colors")
+    if shading == "textured" and (uvs is None or texture is None):
+        raise ValueError("'textured' shading requires uvs + texture")
+    attrs, chans = gather_attribute_values(
+        shading, tris, colors=colors, normals=normals, uvs=uvs,
+        has_light=light is not None and normals is not None)
+    covered = tri_id != NO_TRIANGLE
+    gb = None
+    if attrs is not None:
+        ws, covered = barycentrics_at_pixels(setup, tri_id, y_start)
+        gb = interpolate_attribute(attrs, tri_id, ws, covered)
+    return shade_gbuffer(gb, covered, shading=shading, chans=chans,
+                         light=light, texture=texture, flat_color=flat_color,
+                         normal_matrix=normal_matrix, view_dir=view_dir)
 
 
 # Params-row layout (float32[PARAMS_WIDTH]):

@@ -99,6 +99,14 @@ def sample_texture_planes(tex: Texture, u, v):
     return out
 
 
+def sample_texture(tex: Texture, uv):
+    """Sample at ``uv`` [..., 2] in [0, 1] (u right, v down); returns
+    [..., C]. The planes sampler on the two coordinate planes (the same
+    arithmetic as the JAX package's ``sample_texture``)."""
+    return torch.stack(sample_texture_planes(tex, uv[..., 0], uv[..., 1]),
+                       dim=-1)
+
+
 def checkerboard(size: int = 256, tiles: int = 8, c0=(1.0, 1.0, 1.0),
                  c1=(0.2, 0.2, 0.2), device=None) -> Texture:
     """Procedural checkerboard (test/demo texture)."""

@@ -49,8 +49,9 @@ def _scene(rp):
     attrs_t = [tuple(torch.from_numpy(np.array(c)) for c in a)
                for a in attrs_j]
     prm_j = jsh.shading_params(rp.light, flat_color=rp.flat_color)
-    return (ps_j, convert.planar_setup_from_numpy(ps_j), attrs_j, attrs_t,
-            chans, prm_j, torch.from_numpy(np.array(prm_j)), has_light)
+    return (ps_j, convert.planar_setup_from_numpy(ps_j, device="cpu"),
+            attrs_j, attrs_t, chans, prm_j, torch.from_numpy(np.array(prm_j)),
+            has_light)
 
 
 def _assert_depth_class(depth_j, depth_t, ids, ps):

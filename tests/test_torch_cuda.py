@@ -22,7 +22,8 @@ from software_renderer_tpu_torch.ops import binning as tb
 from software_renderer_tpu_torch.ops import frontend as fe
 from software_renderer_tpu_torch.ops.frontend_kernel import fe_kernel, fe_plain
 from software_renderer_tpu_torch.ops.rasterize_kernel import (
-    _poison_row, visibility_merge_kernel, visibility_merge_plain)
+    _poison_row, visibility_kernel, visibility_merge_kernel,
+    visibility_merge_plain, visibility_plain)
 from software_renderer_tpu_torch.render import triangle_inputs
 
 PLANE_TOL = 1e-5
@@ -93,19 +94,57 @@ def test_fused_and_overflow_kernels_match_plain(bands):
         assert float((ok2 - op2).abs().max()) <= PLANE_TOL
 
 
+@pytest.mark.parametrize("bands", [1, 4])
+def test_backend_kernels_match_plain(bands):
+    """K3' (clear mode), K5 and K6 against their plain versions, and the
+    unbinned record walk against the binned pass (K5, then K3 and K4 on
+    the kmax=1 spill) bit for bit."""
+    rp = scenes.config4_many_objects(0.0, width=320, height=192,
+                                     triangles=3000, device="cuda")
+    ps, _, attrs, _, _, _ = triangle_inputs(rp)
+    w, h = rp.width, rp.height
+    geo = dict(width=w, height=h, bands=bands)
+    info = tb.build_bins(ps, width=w, height=h, bands=bands)
+    table, a, poison = fe.stream_table_planar(
+        ps, fe.attribute_plane_cols(ps, attrs))
+    rows = tb.gather_stream(table, info.ids, poison).contiguous()
+    zk, ik = tb.binned_vis_kernel(rows, info.bin_start, **geo)
+    zp, ip = tb.binned_vis_plain(rows, info.bin_start, **geo)
+    gk = tb.resolve_kernel(rows, info.bin_start, ik, n_channels=a, **geo)
+    gp = tb.resolve_plain(rows, info.bin_start, ik, n_channels=a, **geo)
+    rec = fe.pack_records_planar(ps, 128)
+    zv, iv = visibility_kernel(rec, width=w, height=h)
+    zvp, ivp = visibility_plain(rec, width=w, height=h)
+    torch.cuda.synchronize()
+    assert bool((ik >= 0).any())
+    assert _equal(ik, ip) and _equal(zk, zp)
+    assert float((gk - gp).abs().max()) <= PLANE_TOL
+    assert _equal(iv, ivp) and _equal(zv, zvp)
+    _cuda.reset_launches()
+    d, i, g = tb.binned_pipeline(ps, attrs, width=w, height=h, kmax=1)
+    torch.cuda.synchronize()
+    for k in ("binned_vis", "visibility_merge", "resolve", "resolve_merge"):
+        assert _cuda.launches[k] == 1, _cuda.launches
+    assert _equal(i, iv) and _equal(d, zv)
+    assert g.shape == (h, w, a) and bool(torch.isfinite(g).all())
+
+
 def _scene(name):
+    """A small scene on the CPU (the card's frame is compared with it)."""
+    cpu = dict(device="cpu")
     if name == "config1":          # unlit, untextured epilogue plan
-        return scenes.config1_flat_cube(0.3, width=128, height=128)
+        return scenes.config1_flat_cube(0.3, width=128, height=128, **cpu)
     if name == "config2":          # lit + textured
-        return scenes.config2_textured_cube(0.7, width=256, height=192)
+        return scenes.config2_textured_cube(0.7, width=256, height=192,
+                                            **cpu)
     if name == "config2_unlit":    # unlit + textured
         return dataclasses.replace(
-            scenes.config2_textured_cube(0.7, width=256, height=192),
+            scenes.config2_textured_cube(0.7, width=256, height=192, **cpu),
             light=None)
     if name == "config3":          # lit, untextured
-        return scenes.config3_phong_mesh(0.5, width=256, height=256)
+        return scenes.config3_phong_mesh(0.5, width=256, height=256, **cpu)
     return scenes.config4_many_objects(0.0, width=320, height=192,
-                                       triangles=3000)
+                                       triangles=3000, **cpu)
 
 
 @pytest.mark.parametrize("name", ["config1", "config2", "config2_unlit",
@@ -123,6 +162,26 @@ def test_render_on_card_matches_cpu(name):
     assert float((cg - fb_c.color).abs().max()) <= 1e-3
 
 
+@pytest.mark.parametrize("backend,shading,kernel", [
+    ("reference", "textured", None), ("pallas", "textured", "visibility"),
+    ("auto", "flat", "binned_vis"), ("pallas", "flat", "visibility")])
+def test_backends_on_card_match_cpu(backend, shading, kernel):
+    rp = dataclasses.replace(_scene("config4"), shading=shading)
+    fb_c = render(rp, backend=backend)
+    _cuda.reset_launches()
+    fb_g = render(rp.to("cuda"), backend=backend)
+    torch.cuda.synchronize()
+    launched = dict(_cuda.launches)
+    assert launched["fe"] == 1 and launched["fused"] == 0, launched
+    for k in ("visibility", "binned_vis", "resolve", "resolve_merge"):
+        assert launched[k] == (k == kernel), launched
+    cg, dg = fb_g.color.cpu(), fb_g.depth.cpu()
+    assert bool(fb_c.color[..., 3].any())
+    assert _equal(cg[..., 3], fb_c.color[..., 3])
+    assert _equal(dg, fb_c.depth)
+    assert float((cg - fb_c.color).abs().max()) <= 1e-3
+
+
 def test_wrappers_raise_on_bad_input():
     x = torch.zeros((9, 4), device="cuda", dtype=torch.float64)
     with pytest.raises(TypeError):
@@ -130,3 +189,18 @@ def test_wrappers_raise_on_bad_input():
     with pytest.raises(ValueError):
         fe_kernel(torch.zeros((9, 8), device="cuda")[:, ::2],
                   torch.zeros(16, device="cuda"), 8, 8)
+    with pytest.raises(ValueError):
+        visibility_kernel(torch.zeros((8, 11), device="cuda"), width=8,
+                          height=8)
+    rows = torch.zeros((4, 17), device="cuda")
+    starts = torch.zeros(2, dtype=torch.int32, device="cuda")
+    tid = torch.zeros((8, 8), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):     # one bin, not two
+        tb.binned_vis_kernel(rows, torch.zeros(3, dtype=torch.int32,
+                                               device="cuda"),
+                             width=8, height=8)
+    with pytest.raises(TypeError):
+        tb.binned_vis_kernel(rows.double(), starts, width=8, height=8)
+    with pytest.raises(ValueError):     # 17 columns are not 11 + 3 * 1
+        tb.resolve_kernel(rows, starts, tid, n_channels=1, width=8,
+                          height=8)

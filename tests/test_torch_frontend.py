@@ -92,7 +92,7 @@ def test_stream_table_and_records_match_jax():
     the stream table and the packed records are pure repacks (bit-equal);
     the attribute planes are multiply-add chains (contraction class)."""
     ps_j, _, _, _, _, _ = _both_fronts(7, False)
-    ps_t = convert.planar_setup_from_numpy(ps_j)
+    ps_t = convert.planar_setup_from_numpy(ps_j, device="cpu")
     rng = np.random.default_rng(7)
     vals = rng.uniform(0, 1, size=(97, 3, 5)).astype(np.float32)
     tj, aj, pj = jfe.stream_table_planar(

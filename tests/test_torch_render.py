@@ -74,7 +74,8 @@ def test_config4_mesh_equals_jax():
 def test_config3_teapot_mesh_equals_jax():
     from software_renderer_tpu.models.obj import load_obj as jload_obj
     mj = jload_obj(str(tscenes.TEAPOT_OBJ))
-    rt = tscenes.config3_phong_mesh(0.5, width=128, height=128)
+    rt = tscenes.config3_phong_mesh(0.5, width=128, height=128,
+                                    device="cpu")
     for f in ("positions", "indices", "colors", "normals", "uvs"):
         np.testing.assert_array_equal(np.asarray(getattr(mj, f)),
                                       getattr(rt.mesh, f).numpy(), err_msg=f)
@@ -93,23 +94,24 @@ def test_load_obj_matches_jax(tmp_path):
     path.write_text(
         "# test\nv 0 0 0\nv 1 0 0\nv 1 1 0\nv 0 1 0\nv 0 0 1\n"
         "f 1 2 3 4\nf -1 -4 -3\n")
-    mj, mt = jload_obj(str(path)), load_obj(str(path))
+    mj, mt = jload_obj(str(path)), load_obj(str(path), device="cpu")
     for f in ("positions", "indices", "colors", "normals", "uvs"):
         np.testing.assert_array_equal(np.asarray(getattr(mj, f)),
                                       getattr(mt, f).numpy(), err_msg=f)
     path.write_text("v 0 0 0\nvn 0 0 1\nf 1//1 1//1 5//1\n")
     with pytest.raises(IndexError):
-        load_obj(str(path))
+        load_obj(str(path), device="cpu")
     path.write_text("v 0 0 0\n")
     with pytest.raises(ValueError, match="no OBJ face data"):
-        load_obj(str(path))
+        load_obj(str(path), device="cpu")
 
 
 def test_port_scenes_render_like_converted_ones():
     """The port's own scene builders give the JAX scene's mesh and a
     renderable frame (transforms may differ by sin/cos ulps)."""
     rj = jscenes.config2_textured_cube(0.4, width=128, height=96)
-    rt = tscenes.config2_textured_cube(0.4, width=128, height=96)
+    rt = tscenes.config2_textured_cube(0.4, width=128, height=96,
+                                      device="cpu")
     np.testing.assert_array_equal(np.asarray(rj.mesh.positions),
                                   rt.mesh.positions.numpy())
     np.testing.assert_allclose(np.asarray(rj.transform),
@@ -119,7 +121,7 @@ def test_port_scenes_render_like_converted_ones():
     fb = srt.render(rt)
     assert fb.color.shape == (96, 128, 4) and bool(fb.color[..., 3].any())
     for build in (tscenes.config1_flat_cube, tscenes.reference_sphere):
-        fb = srt.render(build(0.3, width=128, height=64))
+        fb = srt.render(build(0.3, width=128, height=64, device="cpu"))
         assert bool(torch.isfinite(fb.color).all())
         assert bool(fb.color[..., 3].any())
 
@@ -131,12 +133,10 @@ def test_to_rgba8_matches_jax():
 
 
 @pytest.mark.parametrize("change", [
-    dict(backend="reference"), dict(backend="pallas"),
     dict(clip_near=True), dict(perspective_correct=True),
-    dict(shading="flat"), dict(primitive="line"),
-    dict(transform=torch.eye(4).expand(2, 4, 4))])
+    dict(primitive="line"), dict(transform=torch.eye(4).expand(2, 4, 4))])
 def test_unported_paths_raise(change):
-    rp = tscenes.config1_flat_cube(0.3, width=64, height=64)
+    rp = tscenes.config1_flat_cube(0.3, width=64, height=64, device="cpu")
     change = dict(change)
     backend = change.pop("backend", "auto")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
