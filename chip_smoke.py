@@ -28,7 +28,24 @@ the script exits non-zero without printing a result:
    binned_pipeline(ps, attrs), each with the counters reset just before
    it and read just after; ms/frame of each; (depth, id) bit-equal across
    the record walk (K3'), the binned pass (K5, K3 on spills) and the fused
-   path (K2).
+   path (K2);
+8. the texture tail's routes: the 8 main-path frames through render()
+   under SR_TEX_WINDOWED "0", "1" and "adaptive" (counters reset per
+   mode); in "1" the windowed sampler (K7) launches once per frame and
+   every frame equals mode "0"'s in alpha and depth bit for bit; a
+   profile of each mode's 8 frames splits device (kernel) time from host
+   time;
+9. texture training at full size: config 4 at 1920x1080, 4 frames of the
+   animation, targets from render_batch with the true texture, 5 steps of
+   texture_train_step from a flat 0.5 texture in modes "0" and "1"; the
+   loss falls at every step, K7 launches 4 times a step in "1", and the
+   two modes' first steps agree;
+10. the gather probe (K8) through its entry point, with the counters
+   reset just before it.
+
+Phase 3 also holds K7 (at config-4 frame-0 shapes, against its plain
+version and the quad-table sampler) and K8 (at the probe's shapes) with
+their times, bounds and library times.
 
 Each kernel's bound is the larger of the bytes it must move over the
 card's memory rate and the float32 operations this run's data needs over
@@ -45,18 +62,26 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from software_renderer_tpu_torch import _cuda, render
 from software_renderer_tpu_torch.models import scenes
 from software_renderer_tpu_torch.ops import binning as tb
 from software_renderer_tpu_torch.ops import frontend as fe
+from software_renderer_tpu_torch.ops import texture as ttex
+from software_renderer_tpu_torch.ops import texture_kernel as ttk
 from software_renderer_tpu_torch.ops import transforms as tf
 from software_renderer_tpu_torch.ops.frontend_kernel import fe_kernel, fe_plain
 from software_renderer_tpu_torch.ops.rasterize_kernel import (
     _poison_row, visibility_kernel, visibility_merge_kernel,
     visibility_merge_plain, visibility_pallas, visibility_plain)
-from software_renderer_tpu_torch.render import planar_front_of, triangle_inputs
+from software_renderer_tpu_torch.ops.shading import fused_output_channels
+from software_renderer_tpu_torch.parallel.batch import render_batch
+from software_renderer_tpu_torch.parallel.sharding import texture_train_step
+from software_renderer_tpu_torch.render import triangle_inputs
+from software_renderer_tpu_torch.tools import probe_dyngather as probe
+from software_renderer_tpu_torch.tools.probe_dyngather import graph_ms
 
 # Shaded planes (kernel vs plain on the same card): both round every
 # operation the same way; only powf may differ from torch.pow by an ulp
@@ -64,6 +89,19 @@ from software_renderer_tpu_torch.render import planar_front_of, triangle_inputs
 PLANE_TOL = 1e-5
 MAIN_FRAMES = (0, 100, 120, 240, 300, 400, 600, 700)
 BACKEND_FRAMES = (0, 120, 240, 600)
+TRAIN_FRAMES = (0, 100, 120, 240)
+TRAIN_STEPS = 5
+# Training step size at 1080p: the loss is a mean over B*H*W*4 entries,
+# so a texel's gradient is of order 1e-7; this moves texels by a few
+# hundredths per step, far below the step that would overshoot.
+TRAIN_LR = 1e5
+# The two modes' first-step textures differ only by the gradient's
+# index-add order (atomics), scaled by TRAIN_LR.
+TRAIN_TOL = 1e-5
+# grid_sample against K7 on the clamp variant: both compute clamp-to-edge
+# bilinear at x = u * tw - 0.5; grid_sample rounds its coordinate another
+# way (((2u - 1) + 1) * tw - 1) / 2.
+LIBRARY_TOL = 1e-5
 # The render path's pair budget for culled scenes (render.py).
 BUDGET = 0.85
 
@@ -83,6 +121,9 @@ OPS_EPILOGUE = 40
 # Per triangle in the front-end: corner transform and divide, screen
 # mapping, edges, depth plane, bbox and certificate, counted from fe.cu.
 OPS_FE = 200
+# Per texture channel and lane in the bilinear lerp: three subtractions,
+# three multiplications, three additions.
+OPS_LERP = 9
 
 
 def sync():
@@ -125,16 +166,16 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(n_bytes, n_ops):
+def bound(n_bytes, n_ops, library_ms=None):
     """The least time (ms) the card could take to move ``n_bytes`` and do
-    ``n_ops`` float32 operations, and which of the two bounds it. No one
-    PyTorch call computes any of these kernels' functions, so there is no
-    library time."""
+    ``n_ops`` float32 operations, which of the two bounds it, and the
+    time of one PyTorch call computing the same function (None where no
+    one call does, as for K1-K6)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_OPS_PER_S * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=None)
+                library_ms=library_ms)
 
 
 def bbox_pixels(bbox, width, height):
@@ -152,6 +193,21 @@ def resolve_bytes(rows, n_won, n_channels, *ts):
     tensors ``ts`` (read or written once)."""
     return (nbytes(rows[:, tb.REC_BASE - 1], *ts)
             + n_won * 3 * n_channels * 4)
+
+
+def sampler_work(tabs, prep, out):
+    """(bytes, lanes) K7 must handle on this data: the tables, every
+    segment's y0 and nwin, dy on the lanes of segments with a window,
+    xa, fx and fy on the lanes inside a window, and the whole output; and
+    the count of lanes inside a window, each of which lerps."""
+    xa, dy, fx, fy, y0, nwin = prep
+    n_seg = int((nwin > 0).sum())
+    lanes = int(((dy >= 0) & (dy < ttk.WIN_STRIDE * nwin[:, None])).sum())
+    n_bytes = (nbytes(tabs, y0, nwin, out)
+               + n_seg * ttk.LANES * dy.element_size()
+               + lanes * (xa.element_size() + fx.element_size()
+                          + fy.element_size()))
+    return n_bytes, lanes
 
 
 def card_line():
@@ -513,6 +569,288 @@ def phase_backends(dev, card):
     return launches, ms
 
 
+def frame0_uv(dev):
+    """Config 4's frame 0 through the fused pipeline: the texture, the u
+    and v planes and the covered mask that its texture tail samples."""
+    rp = scenes.config4_many_objects(0.0, device=dev)
+    ps, chans, attrs, prm, has_light, has_texture = triangle_inputs(rp)
+    _, ids, out = tb.fused_pipeline(
+        ps, attrs, prm, width=rp.width, height=rp.height, chans=chans,
+        has_light=has_light, has_texture=has_texture,
+        pair_budget_factor=BUDGET)
+    assert fused_output_channels(rp.shading, chans, has_light,
+                                 has_texture)[-1] == ("uv", 2)
+    return rp.texture, out[-2], out[-1], ids != -1
+
+
+def phase_texture_kernels(dev):
+    """K7 at config-4 frame-0 shapes (16,200 segments of 128 lanes, C = 3,
+    256x256 repeat texture) and K8 at the probe's shapes, each against
+    its plain version, with times, bounds and library times."""
+    tex, u, v, covered = frame0_uv(dev)
+    th, tw, c = tex.data.shape
+    h, w = u.shape
+    ns = h * w // ttk.LANES
+    u_s, v_s = u.reshape(ns, ttk.LANES), v.reshape(ns, ttk.LANES)
+    cov_s = covered.reshape(ns, ttk.LANES)
+    res = {}
+
+    def route(wrap):
+        prep = ttk.windowed_prep(u_s, v_s, cov_s, th=th, tw=tw, wrap=wrap)
+        return ttk.windowed_tables(tex.data, wrap), prep
+
+    geo = dict(th=th, tw=tw, wrap=tex.wrap)
+    tabs, prep = route(tex.wrap)
+    k7 = ttk.sampler_kernel(tabs, *prep, **geo)
+    p7 = ttk.sample_segments_windowed_plain(tabs, *prep, **geo)
+    quad = ttex.sample_texture_planes(tex, u, v)
+    sync()
+    assert_bit_equal(k7, p7, "K7 vs plain, every lane")
+    err_quad = max(max_err(k7[ch].reshape(h, w)[covered], quad[ch][covered])
+                   for ch in range(c))
+    assert err_quad <= PLANE_TOL, f"K7 vs quad-table sampler: {err_quad}"
+    # The library call: grid_sample computes clamp-to-edge bilinear, so it
+    # is held against K7's clamp variant, on covered lanes at or right of
+    # the first texel centre and at or below it (left of it the TPU
+    # sampler's clamp lerps toward texel 1, where grid_sample holds texel
+    # 0).
+    tabs_c, prep_c = route("clamp")
+    k7c = ttk.sampler_kernel(tabs_c, *prep_c, th=th, tw=tw, wrap="clamp")
+    img = tex.data.permute(2, 0, 1)[None].contiguous()
+    grid = torch.stack([u_s * 2.0 - 1.0, v_s * 2.0 - 1.0], dim=-1)[None]
+
+    def library():
+        return torch.nn.functional.grid_sample(
+            img, grid, mode="bilinear", padding_mode="border",
+            align_corners=False)
+
+    gs = library()[0]
+    inner = cov_s & (u_s * tw - 0.5 >= 0.0) & (v_s * th - 0.5 >= 0.0)
+    err_lib = max_err(k7c[:, inner], gs[:, inner])
+    sync()
+    assert err_lib <= LIBRARY_TOL, f"grid_sample vs K7 clamp: {err_lib}"
+    n_cov = int(covered.sum())
+    print(f"K7 at config-4 frame 0: {ns} segments, {n_cov} covered lanes, "
+          f"{int((prep[5] > 0).sum())} covered segments, "
+          f"{int(prep[5].sum())} windows; bit-equal to its plain version on "
+          f"every lane; covered lanes vs sample_texture_planes max |d| "
+          f"{err_quad}; grid_sample vs K7 (clamp) max |d| {err_lib} on "
+          f"{int(inner.sum())} lanes ({n_cov - int(inner.sum())} covered "
+          f"lanes at the left/top half texel left out)", flush=True)
+    k7_bytes, k7_lanes = sampler_work(tabs, prep, k7)
+    print(f"  K7 bound counts {k7_bytes} bytes and {k7_lanes} lanes inside "
+          f"a window", flush=True)
+    # Device times from CUDA-graph replays: K7, K8 and their library calls
+    # are shorter than the host's launch overhead.
+    res["sampler"] = dict(
+        max_abs_err=max_err(k7, p7),
+        ms=graph_ms(lambda: ttk.sampler_kernel(tabs, *prep, **geo), 50),
+        launch_loop_ms=cuda_ms(lambda: ttk.sampler_kernel(tabs, *prep,
+                                                          **geo), 50),
+        plain_ms=graph_ms(lambda: ttk.sample_segments_windowed_plain(
+            tabs, *prep, **geo), 5),
+        prep_ms=graph_ms(lambda: ttk.windowed_prep(
+            u_s, v_s, cov_s, th=th, tw=tw, wrap=tex.wrap), 10),
+        tables_ms=graph_ms(lambda: ttk.windowed_tables(tex.data, tex.wrap),
+                           20),
+        quad_sampler_ms=graph_ms(
+            lambda: ttex.sample_texture_planes(tex, u, v), 20),
+        grid_sample_max_abs_err=err_lib,
+        shape=f"{ns}x{ttk.LANES} lanes, C={c}, {th}x{tw} {tex.wrap}",
+        **bound(k7_bytes, OPS_LERP * c * k7_lanes,
+                library_ms=graph_ms(library, 50)))
+
+    rng = np.random.default_rng(0)
+    err_tk = 0.0
+    for s_, l_, axis in probe.SHAPES:
+        x, idx = probe.shape_inputs(rng, s_, l_, axis, dev)
+        ok = probe.take_along_axis(x, idx, axis)
+        op = probe.take_along_axis_plain(x, idx, axis)
+        sync()
+        assert_bit_equal(ok, op, f"K8 take_along_axis [{s_},{l_}] axis "
+                         f"{axis}")
+        err_tk = max(err_tk, max_err(ok, op))
+    # Timed at the probe's largest shape, [256, 128] on axis 0.
+    x, idx = probe.shape_inputs(rng, 256, 128, 0, dev)
+    plain_tk = graph_ms(lambda: probe.take_along_axis_plain(x, idx, 0), 50)
+    res["take_along_axis"] = dict(
+        max_abs_err=err_tk,
+        ms=graph_ms(lambda: probe.take_along_axis(x, idx, 0), 50),
+        plain_ms=plain_tk,
+        shape="9 probe shapes exact; timed at [256,128] axis 0",
+        **bound(nbytes(x, idx, x), 0, library_ms=plain_tk))
+    tab, y0, ty, tx, _, _ = probe.lookup_inputs(rng, dev)
+    lk = probe.window_lookup(tab, y0, ty, tx)
+    lp = probe.window_lookup_plain(tab, y0, ty, tx)
+    sync()
+    assert_bit_equal(lk, lp, "K8 window lookup")
+    plain_wl = graph_ms(lambda: probe.window_lookup_plain(tab, y0, ty, tx),
+                        50)
+    res["window_lookup"] = dict(
+        max_abs_err=max_err(lk, lp),
+        ms=graph_ms(lambda: probe.window_lookup(tab, y0, ty, tx), 50),
+        plain_ms=plain_wl,
+        shape=f"{probe.SEGS}x{probe.LANES} lanes, "
+              f"{probe.TABLE}x{probe.TABLE} table",
+        **bound(nbytes(tab, y0, ty, tx, lk), 0, library_ms=plain_wl))
+    for name in ("sampler", "take_along_axis", "window_lookup"):
+        print(f"  {name}: {json.dumps(res[name])}", flush=True)
+    _cuda.reset_launches()
+    return res
+
+
+def phase_windowed_modes(dev, card):
+    """The 8 main-path frames through render() under each sampler route,
+    counters reset per mode; mode "1" launches K7 once a frame and gives
+    mode "0"'s frames in alpha and depth bit for bit."""
+    rp = scenes.config4_many_objects(0.0, device=dev)
+    passes = [dataclasses.replace(rp, transform=bench_transform(
+        rp.transform, i)) for i in MAIN_FRAMES]
+    frames, launches, ms = {}, {}, {}
+    # The profiler's first start takes seconds (CUPTI set-up): start it
+    # once before the profiled frames, so their host clocks compare.
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        sync()
+    for mode in ("0", "1", "adaptive"):
+        ttex.TEX_WINDOWED = mode
+        render(passes[0])  # warm-up
+        sync()
+        _cuda.reset_launches()
+        times, host, fbs = [], [], []
+        for p in passes:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            fbs.append(render(p))
+            end.record()
+            sync()
+            host.append((time.perf_counter() - t0) * 1e3)
+            times.append(start.elapsed_time(end))
+        launches[mode] = dict(_cuda.launches)
+        frames[mode], ms[mode] = fbs, times
+        print(f"SR_TEX_WINDOWED={mode}: {len(passes)} config-4 frames, "
+              f"sampler launches {launches[mode]['sampler']}; ms/frame (CUDA "
+              f"events, {card}): {times}; mean {sum(times) / len(times)}; "
+              f"host clock to synchronize: {host}", flush=True)
+        # Where the 8 frames' time goes, on the device and on the host, per
+        # route (the adaptive route has had frames far slower than its
+        # mean).
+        top_device_ops(lambda: [render(p) for p in passes],
+                       f"{len(passes)} frames, SR_TEX_WINDOWED={mode}")
+    ttex.TEX_WINDOWED = "0"
+    assert launches["0"]["sampler"] == 0
+    assert launches["1"]["sampler"] == len(passes), launches["1"]
+    for mode in ("1", "adaptive"):
+        err = 0.0
+        for i, a, b in zip(MAIN_FRAMES, frames["0"], frames[mode]):
+            assert_bit_equal(b.color[..., 3], a.color[..., 3],
+                             f"mode {mode} frame {i} alpha")
+            assert_bit_equal(b.depth, a.depth, f"mode {mode} frame {i} depth")
+            assert bool(torch.isfinite(b.color).all())
+            err = max(err, max_err(b.color, a.color))
+        print(f"  mode {mode} frames equal mode 0's in alpha and depth; "
+              f"color max |d| {err}", flush=True)
+    return launches, ms
+
+
+def top_device_ops(fn, what, n=6):
+    """Run ``fn`` once under torch.profiler and print the ``n`` operators
+    with the most device time (self time, ms) and the device total, then
+    the same for host (CPU self) time, with the host clock of the run."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        sync()
+    wall = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    def host_us(e):
+        return e.self_cpu_time_total
+
+    # The device side lists the kernels (and copies) only: an operator's
+    # self device time repeats its kernels' and would count them twice.
+    avgs = prof.key_averages()
+    kernels = [e for e in avgs
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    for side, key, evts in (("device", dev_us, kernels),
+                            ("host", host_us, list(avgs))):
+        evts = sorted(evts, key=key, reverse=True)
+        total = sum(key(e) for e in evts) / 1e3
+        top = [(e.key[:60], round(key(e) / 1e3, 3), e.count)
+               for e in evts[:n]]
+        print(f"  profile of one {what}: {side} self time {total} ms"
+              f"{f' (host clock {wall} ms)' if side == 'host' else ''}; "
+              f"top (op, ms, calls): {top}", flush=True)
+
+
+def phase_training(dev, card):
+    """Texture training at config 4's full size: 4 frames, targets from
+    render_batch with the true texture, TRAIN_STEPS steps from a flat 0.5
+    texture in modes "0" and "1"."""
+    rp = scenes.config4_many_objects(0.0, device=dev)
+    ts = torch.stack([bench_transform(rp.transform, i)
+                      for i in TRAIN_FRAMES])
+    targets = render_batch(rp, ts).color
+    sync()
+    first, launches, ms = {}, {}, {}
+    for mode in ("0", "1"):
+        ttex.TEX_WINDOWED = mode
+        tex = torch.full_like(rp.texture.data, 0.5)
+        losses, times, per_step = [], [], []
+        for step in range(TRAIN_STEPS):
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            tex, loss = texture_train_step(tex, rp, ts, targets, lr=TRAIN_LR)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+            per_step.append(_cuda.launches["sampler"])
+            losses.append(float(loss))
+            if step == 0:
+                first[mode] = tex.clone()
+        top_device_ops(lambda: texture_train_step(
+            tex, rp, ts, targets, lr=TRAIN_LR),
+            f"training step, SR_TEX_WINDOWED={mode}")
+        assert bool(torch.isfinite(tex).all())
+        launches[mode], ms[mode] = per_step, times
+        print(f"training SR_TEX_WINDOWED={mode}: config4 {rp.width}x"
+              f"{rp.height}, {len(TRAIN_FRAMES)} frames, lr {TRAIN_LR}: "
+              f"losses {losses}; "
+              f"sampler launches per step {per_step}; ms/step (host clock "
+              f"to synchronize, {card}): {times}", flush=True)
+        for a, b in zip(losses, losses[1:]):
+            assert b < a, f"mode {mode}: the loss rose {a} -> {b}"
+    ttex.TEX_WINDOWED = "0"
+    assert all(n == 0 for n in launches["0"])
+    assert all(n == len(TRAIN_FRAMES) for n in launches["1"]), launches
+    diff = max_err(first["1"], first["0"])
+    moved = float((first["0"] - 0.5).abs().max())
+    print(f"  first step: texels moved up to {moved}; modes 0 and 1 agree "
+          f"within {diff}", flush=True)
+    assert diff <= TRAIN_TOL, f"first steps differ by {diff}"
+    return launches, ms
+
+
+def phase_probe():
+    """The gather probe (K8) through its entry point, counters reset just
+    before it."""
+    _cuda.reset_launches()
+    res = probe.main()
+    sync()
+    launches = dict(_cuda.launches)
+    assert all(s[3] for s in res["shapes"]) and res["lookup_exact"]
+    for k in ("take_along_axis", "window_lookup"):
+        assert launches[k] > 0, f"{k} never launched by the probe"
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -533,6 +871,7 @@ def main():
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     res = phase_kernels(dev)                                 # phase 3
+    res.update(phase_texture_kernels(dev))
     sync()
     phase_spill(dev)                                         # phase 4
     sync()
@@ -541,6 +880,12 @@ def main():
     phase_small_reference(dev)                               # phase 6
     sync()
     backend_launches, _ = phase_backends(dev, card)          # phase 7
+    sync()
+    mode_launches, _ = phase_windowed_modes(dev, card)       # phase 8
+    sync()
+    phase_training(dev, card)                                # phase 9
+    sync()
+    probe_launches = phase_probe()                           # phase 10
     sync()
 
     src = "software_renderer_tpu_torch/csrc/"
@@ -561,21 +906,44 @@ def main():
                        "software_renderer_tpu/ops/binning.py:607"),
         "resolve": ("resolve_kernel", "resolve.cu",
                     "software_renderer_tpu/ops/binning.py:663"),
+        "sampler": ("sampler_kernel", "sampler.cu",
+                    "software_renderer_tpu/ops/texture_kernel.py:226"),
+        "window_lookup": ("window_lookup", "probe_gather.cu",
+                          "tools/probe_dyngather.py:97"),
+        "take_along_axis": ("take_along_axis", "probe_gather.cu",
+                            "tools/probe_dyngather.py:69"),
     }
     # Launches on the path that runs each kernel: the main path for K1-K4,
-    # the pallas backend for K3', flat shading for K5, and
-    # binned_pipeline(ps, attrs) for K6.
+    # the pallas backend for K3', flat shading for K5,
+    # binned_pipeline(ps, attrs) for K6, the main path under
+    # SR_TEX_WINDOWED=1 for K7 and the probe for K8.
     path_launches = {k: launches[k] for k in
                      ("fe", "fused", "visibility_merge", "resolve_merge")}
     path_launches["visibility"] = backend_launches["pallas"]["visibility"]
     path_launches["binned_vis"] = backend_launches["flat"]["binned_vis"]
     path_launches["resolve"] = backend_launches["binned_pipeline"]["resolve"]
+    path_launches["sampler"] = mode_launches["1"]["sampler"]
+    for k in ("window_lookup", "take_along_axis"):
+        path_launches[k] = probe_launches[k]
+    assert all(n > 0 for n in path_launches.values()), path_launches
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [dict(name=n, route="cuda", source=src + f, replaces=r,
                     launches=path_launches[k],
                     **{key: res[k][key] for key in keys})
                for k, (n, f, r) in meta.items()]
+    # The redesign order of ROADMAP.md: kernels slower than one torch call
+    # first, then by launches on their path x (ms - bound_ms).
+    excess = {k["name"]: k["launches"] * (k["ms"] - k["bound_ms"])
+              for k in kernels}
+    order = sorted(kernels, key=lambda k: (
+        k["library_ms"] is None or k["ms"] <= k["library_ms"],
+        -excess[k["name"]]))
+    print("redesign order [kernel, slower than one torch call, launches x "
+          "(ms - bound_ms)]: " + json.dumps([
+              [k["name"], k["library_ms"] is not None
+               and k["ms"] > k["library_ms"], excess[k["name"]]]
+              for k in order]), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -36,7 +36,8 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
 # "fused_seeded" counts the seeded launches among the "fused" ones.
 launches = {"fe": 0, "fused": 0, "fused_seeded": 0, "visibility_merge": 0,
             "resolve_merge": 0, "visibility": 0, "binned_vis": 0,
-            "resolve": 0}
+            "resolve": 0, "sampler": 0, "window_lookup": 0,
+            "take_along_axis": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -48,6 +49,9 @@ _SIGNATURES = {
     "sr_visibility": (_P, _I, _I, _I, _I, _P, _P, _P),
     "sr_binned_vis": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "sr_resolve": (_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+    "sr_sampler": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P),
+    "sr_window_lookup": (_P, _I, _I, _P, _P, _P, _I, _P, _P),
+    "sr_take_along_axis": (_P, _I, _I, _P, _I, _P, _P),
 }
 
 _lib = None

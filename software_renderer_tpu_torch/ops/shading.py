@@ -19,7 +19,8 @@ import torch
 
 from ..framebuffer import NO_TRIANGLE
 from .resolve import barycentrics_at_pixels, interpolate_attribute
-from .texture import Texture, sample_texture, sample_texture_planes
+from .texture import (Texture, sample_texture,
+                      sample_texture_planes_compacted)
 
 
 @dataclasses.dataclass
@@ -286,7 +287,7 @@ def finish_fused(out_cf, covered, *, out_chans,
                or _chan_planes(planes, out_chans, "lit"))
     if "uv" in names and texture is not None:
         u, v = _chan_planes(planes, out_chans, "uv")
-        tex = sample_texture_planes(texture, u, v)
+        tex = sample_texture_planes_compacted(texture, u, v, covered)
         if len(tex) == 1:  # a single-channel texture broadcasts
             tex = tex * 3
         rgb = [rgb[c] * tex[c] for c in range(3)]

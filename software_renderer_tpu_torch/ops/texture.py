@@ -1,21 +1,42 @@
 """Texture sampling: nearest and bilinear, repeat and clamp addressing.
 
 Bilinear sampling reads one row of a quad table per pixel: row (y, x)
-holds the 2x2 texel neighbourhood with the wrap mode baked in. The
+holds the 2x2 texel neighbourhood with the wrap mode baked in. That
 sampler is plain torch: in the JAX package it is an XLA stage, not a
-Pallas kernel. The JAX package's compacted sampler and its
+Pallas kernel. The fused path's texture tail routes through
+:func:`sample_texture_planes_compacted`, which takes the windowed
+sampler (ops/texture_kernel.py, K7 on the card) when ``SR_TEX_WINDOWED``
+asks for it. The JAX package's cap-ladder compaction and its
 ``TEX_GATHER_SPLIT``/``TEX_TABLE_PACK`` knobs work around the TPU's
-gather costs and are not ported; the JAX docstring states the compacted
-sampler equals :func:`sample_texture_planes` per covered pixel. The
-trilinear filter is ROADMAP.md Queue 1 item 5.
+static grid and gather costs and are not ported; the JAX docstring states
+the compacted sampler equals :func:`sample_texture_planes` per covered
+pixel. The trilinear filter is ROADMAP.md Queue 1 item 5.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import torch
+
+from .texture_kernel import (LANES, sample_segments_windowed, windowed_count,
+                             windowed_prep, windowed_supported,
+                             windowed_tables)
+
+# Width of the row segments the texture tail samples in (JAX texture.py).
+COMPACT_SEG = LANES
+
+# The texture tail's sampler route, read from SR_TEX_WINDOWED as in JAX
+# (texture.py:430): "0" the quad-table sampler always; "1" the windowed
+# sampler (K7) whenever the texture supports it; "adaptive" the windowed
+# sampler on frames whose window count fits TEX_WIN_AVG_BUDGET.
+TEX_WINDOWED = os.environ.get("SR_TEX_WINDOWED", "0")
+
+# Adaptive budget: windows per covered segment (SR_TEX_WIN_AVG, JAX
+# texture.py:437).
+TEX_WIN_AVG_BUDGET = float(os.environ.get("SR_TEX_WIN_AVG", "4"))
 
 
 @dataclasses.dataclass
@@ -97,6 +118,56 @@ def sample_texture_planes(tex: Texture, u, v):
         bot = t10 + (t11 - t10) * fx
         out.append(top + (bot - top) * fy)
     return out
+
+
+def sample_texture_planes_compacted(tex: Texture, u, v, covered):
+    """The fused path's bilinear texture tail: C planes [H, W] sampled at
+    the (u, v) planes, routed by :data:`TEX_WINDOWED`. Per covered pixel
+    every route equals :func:`sample_texture_planes`; uncovered pixels
+    hold values the caller's covered mask zeroes.
+
+    * ``"0"``, a filter other than bilinear, a texture
+      :func:`windowed_supported` refuses, or a width that is not a
+      multiple of COMPACT_SEG: the quad-table sampler over the whole
+      frame.
+    * ``"1"``: :func:`windowed_prep` and the windowed sampler over every
+      1 x COMPACT_SEG row segment of the frame, as JAX's ``win_full``
+      (texture.py:796-817). JAX's cap ladder of compacted tiers is not
+      ported: it sizes the TPU's static grid, while on the card a segment
+      with ``nwin = 0`` costs one early exit, and per covered pixel the
+      values are the same either way.
+    * ``"adaptive"``: the windowed sampler when the frame's total
+      :func:`windowed_count` is at most TEX_WIN_AVG_BUDGET times its
+      covered segments (JAX's tier rule, with the tier's cap replaced by
+      the count it bounds), else the quad-table sampler. Reading the
+      predicate costs one host sync per frame.
+
+    u, v, covered: [H, W].
+    """
+    th, tw, c = tex.data.shape
+    h, w = u.shape
+    k = COMPACT_SEG
+    ns = h * w // k
+    mode = TEX_WINDOWED
+    if mode not in ("0", "1", "adaptive"):
+        raise ValueError(f"SR_TEX_WINDOWED must be '0', '1' or 'adaptive', "
+                         f"got {mode!r}")
+    if (mode == "0" or tex.filter != "bilinear" or w % k
+            or not windowed_supported(th, tw, c, k)):
+        return sample_texture_planes(tex, u, v)
+    u_s, v_s = u.reshape(ns, k), v.reshape(ns, k)
+    cov_s = covered.reshape(ns, k)
+    if mode == "adaptive":
+        total = windowed_count(v_s, cov_s, th=th, wrap=tex.wrap).sum()
+        n_cov = cov_s.any(dim=1).sum()
+        if not bool(total <= TEX_WIN_AVG_BUDGET * n_cov):   # host sync
+            return sample_texture_planes(tex, u, v)
+    xa, dy, fx, fy, y0, nwin = windowed_prep(u_s, v_s, cov_s, th=th, tw=tw,
+                                             wrap=tex.wrap)
+    planes = sample_segments_windowed(windowed_tables(tex.data, tex.wrap),
+                                      xa, dy, fx, fy, y0, nwin, th=th,
+                                      tw=tw, wrap=tex.wrap)
+    return [p.reshape(h, w) for p in planes.unbind(0)]
 
 
 def sample_texture(tex: Texture, uv):

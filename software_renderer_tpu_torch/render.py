@@ -15,11 +15,19 @@ kernel on the card). Then, by backend:
   (ops/rasterize_ref.py), then ``shade``.
 
 Every tensor follows the device of the RenderPass's tensors.
+
+Gradients: on ``auto``/``binned`` the geometry stage (front-end, bins,
+fused kernel) sits in one autograd region whose backward warns and
+returns zeros for the geometry, vertex-attribute and light inputs, as
+JAX's ``_stop_geometry_grads`` does; texture gradients flow through the
+texture tail outside it. ``reference``/``pallas`` stop gradients at depth
+and triangle id only, as in JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import torch
@@ -88,10 +96,15 @@ def triangle_inputs(rp: RenderPass, ps: Optional[fe.PlanarSetup] = None):
     front-end (computed unless given), the channel plan, the per-corner
     attribute columns (normals rotated by the model's normal matrix), the
     shading row, and whether the frame is lit and textured."""
-    mesh = rp.mesh
-    tris = mesh.triangles().long()
     if ps is None:
         ps = planar_front_of(rp)
+    return (ps, *_shading_inputs(rp))
+
+
+def _shading_inputs(rp: RenderPass):
+    """:func:`triangle_inputs` without the front-end."""
+    mesh = rp.mesh
+    tris = mesh.triangles().long()
     has_light = rp.light is not None and mesh.normals is not None
     has_texture = rp.shading == "textured"
     if has_texture and (mesh.uvs is None or rp.texture is None):
@@ -114,7 +127,52 @@ def triangle_inputs(rp: RenderPass, ps: Optional[fe.PlanarSetup] = None):
                 nx, ny, nz = rot(0), rot(1), rot(2)
             attrs += [nx, ny, nz]
     params = shading_params(rp.light, flat_color=rp.flat_color)
-    return ps, chans, attrs, params, has_light, has_texture
+    return chans, attrs, params, has_light, has_texture
+
+
+_FUSED_GRAD_MSG = (
+    "render(backend='auto'/'binned') is being differentiated w.r.t. "
+    "geometry/vertex-attribute/light inputs, but the fused pipeline stops "
+    "those gradients (they are returned as ZERO). Only texture gradients "
+    "flow on the fast path; use backend='pallas' or 'reference' for "
+    "vertex-attribute/light gradients.")
+
+
+class _StopGeometryGrads(torch.autograd.Function):
+    """``fn(*inputs)`` run without a graph; its backward warns with
+    :data:`_FUSED_GRAD_MSG` and returns zeros for the floating inputs."""
+
+    @staticmethod
+    def forward(ctx, fn, *inputs):
+        ctx.specs = [(x.shape, x.dtype, x.device) for x in inputs]
+        outs = fn(*inputs)
+        ctx.mark_non_differentiable(
+            *(o for o in outs if not o.is_floating_point()))
+        return outs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        warnings.warn(_FUSED_GRAD_MSG, stacklevel=2)
+        return (None, *(torch.zeros(shape, dtype=dt, device=dev)
+                         if dt.is_floating_point else None
+                         for shape, dt, dev in ctx.specs))
+
+
+def _stop_geometry_grads(fn, *inputs):
+    """Run ``fn(*inputs)`` (tensors in, a tuple of tensors out) with the
+    inputs' gradients stopped, and warn if they are asked for.
+
+    Counterpart of JAX's ``_stop_geometry_grads`` (render.py:113-151).
+    The CUDA kernels have no gradient and their plain versions would give
+    real ones, so without this region the card cuts the graph silently
+    while the CPU differentiates. JAX's region begins at the planar
+    setup; here it begins at the corner columns and the transform,
+    because the front-end kernel cuts the graph too. The backward runs
+    only when a caller differentiates these inputs: autograd records the
+    region only for inputs that require grad, and texture-only training
+    asks for no gradient of them. Forward-mode AD is not supported.
+    """
+    return _StopGeometryGrads.apply(fn, *inputs)
 
 
 def _visibility(setup, rp: RenderPass, backend: str, y_start: int = 0):
@@ -138,35 +196,52 @@ def render_triangles(rp: RenderPass, backend: str = "auto") -> Framebuffer:
         raise _not_ported("perspective_correct=True",
                           "Queue 1 item 3, perspective-correct attributes")
     mesh = rp.mesh
-    ps = planar_front_of(rp)
     if backend in ("reference", "pallas"):
-        setup = fe.to_setup(ps)
+        setup = fe.to_setup(planar_front_of(rp))
         depth, tri_id = _visibility(setup, rp, backend)
+        # The visibility buffer is discrete: gradients flow through the
+        # shading, not the coverage (JAX render.py:404-405).
+        depth, tri_id = depth.detach(), tri_id.detach()
         color = shade(setup, tri_id, mesh.triangles().long(),
                       shading=rp.shading, colors=mesh.colors,
                       normals=mesh.normals, uvs=mesh.uvs, light=rp.light,
                       texture=rp.texture, flat_color=rp.flat_color,
                       normal_matrix=_normal_matrix(rp))
         return Framebuffer(color=color, depth=depth)
-    ps, chans, attrs, params, has_light, has_texture = triangle_inputs(rp, ps)
+    chans, attrs, params, has_light, has_texture = _shading_inputs(rp)
     # The JAX package's budgets for the banded layout: culled scenes emit
     # about half the pairs, and bands emit ~1.3-1.5x more pairs than
     # whole tiles.
     budget = 0.85 if rp.cull_backfaces else 3.0
+    corners = fe.corner_cols(mesh.positions[mesh.triangles().long()])
+    n_attr = len(attrs)
+
+    def geometry(*xs):
+        # xs: 9 corner columns, the transform, 3 columns per attribute
+        # channel, the shading row.
+        ps = fe.planar_front((xs[0:3], xs[3:6], xs[6:9]), xs[9], rp.width,
+                             rp.height, cull_backfaces=rp.cull_backfaces)
+        kw = dict(width=rp.width, height=rp.height,
+                  pair_budget_factor=budget)
+        if not chans:
+            return binned_pipeline(ps, None, **kw)[:2]
+        cols = [tuple(xs[10 + 3 * i:13 + 3 * i]) for i in range(n_attr)]
+        return fused_pipeline(ps, cols, xs[-1], chans=chans,
+                              has_light=has_light, has_texture=has_texture,
+                              **kw)
+
+    inputs = [c for corner in corners for c in corner] + [rp.transform]
     if not chans:
-        depth, tri_id, _ = binned_pipeline(
-            ps, None, width=rp.width, height=rp.height,
-            pair_budget_factor=budget)
+        depth, tri_id = _stop_geometry_grads(geometry, *inputs)
         color = shade_gbuffer(None, tri_id != -1, shading=rp.shading,
                               chans=chans, light=rp.light, texture=rp.texture,
                               flat_color=rp.flat_color)
         return Framebuffer(color=color, depth=depth)
     out_chans = fused_output_channels(rp.shading, chans, has_light,
                                       has_texture)
-    depth, tri_id, out = fused_pipeline(
-        ps, attrs, params, width=rp.width, height=rp.height, chans=chans,
-        has_light=has_light, has_texture=has_texture,
-        pair_budget_factor=budget)
+    inputs += [c for cols in attrs for c in cols] + [params]
+    # Texture gradients flow through finish_fused, outside the region.
+    depth, tri_id, out = _stop_geometry_grads(geometry, *inputs)
     color = finish_fused(out, tri_id != -1, out_chans=out_chans,
                          light=rp.light, texture=rp.texture)
     return Framebuffer(color=color, depth=depth)

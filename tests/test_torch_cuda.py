@@ -9,9 +9,11 @@ This file imports no JAX, so it runs on a machine with a card and no JAX:
 Ids and depth must be bit-equal (the kernels are built with --fmad=false
 and IEEE division/sqrt, and repeat the plain versions' operations in
 order); shaded planes within 1e-5 (powf may differ from torch.pow by an
-ulp or two).
+ulp or two). The windowed sampler (K7) and the gather probe (K8) equal
+their plain versions bit for bit.
 """
 import dataclasses
+import warnings
 
 import pytest
 import torch
@@ -20,11 +22,16 @@ from software_renderer_tpu_torch import _cuda, render
 from software_renderer_tpu_torch.models import scenes
 from software_renderer_tpu_torch.ops import binning as tb
 from software_renderer_tpu_torch.ops import frontend as fe
+from software_renderer_tpu_torch.ops import texture as ttex
+from software_renderer_tpu_torch.ops import texture_kernel as ttk
 from software_renderer_tpu_torch.ops.frontend_kernel import fe_kernel, fe_plain
 from software_renderer_tpu_torch.ops.rasterize_kernel import (
     _poison_row, visibility_kernel, visibility_merge_kernel,
     visibility_merge_plain, visibility_plain)
+from software_renderer_tpu_torch.parallel.batch import render_batch
+from software_renderer_tpu_torch.parallel.sharding import texture_train_step
 from software_renderer_tpu_torch.render import triangle_inputs
+from software_renderer_tpu_torch.tools import probe_dyngather as probe
 
 PLANE_TOL = 1e-5
 
@@ -204,3 +211,149 @@ def test_wrappers_raise_on_bad_input():
     with pytest.raises(ValueError):     # 17 columns are not 11 + 3 * 1
         tb.resolve_kernel(rows, starts, tid, n_channels=1, width=8,
                           height=8)
+
+
+def _sampler_case(th, tw, c, wrap, seed=3, cap=64):
+    """Windowed-sampler inputs on the card: clustered, spread and seam
+    segments, garbage UVs on uncovered lanes, one empty segment."""
+    g = torch.Generator().manual_seed(seed)
+    data = torch.rand((th, tw, c), generator=g)
+    v0 = torch.rand((cap, 1), generator=g)
+    spread = torch.tensor([0.01, 0.08, 0.9])[torch.randint(
+        0, 3, (cap, 1), generator=g)]
+    v = (v0 + torch.rand((cap, 128), generator=g) * spread) % 1.0
+    u = torch.rand((cap, 128), generator=g)
+    cov = torch.rand((cap, 128), generator=g) < 0.8
+    cov[0] = False
+    u = torch.where(cov, u, 1e30)
+    v = torch.where(cov, v, -3e7)
+    tabs = ttk.windowed_tables(data.cuda(), wrap)
+    prep = ttk.windowed_prep(u.cuda(), v.cuda(), cov.cuda(), th=th, tw=tw,
+                             wrap=wrap)
+    return data, u, v, cov, tabs, prep
+
+
+@pytest.mark.parametrize("th,tw", [(128, 128), (256, 256), (64, 512)])
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("wrap", ["repeat", "clamp"])
+def test_sampler_kernel_matches_plain(th, tw, c, wrap):
+    data, u, v, cov, tabs, prep = _sampler_case(th, tw, c, wrap)
+    geo = dict(th=th, tw=tw, wrap=wrap)
+    _cuda.reset_launches()
+    k = ttk.sample_segments_windowed(tabs, *prep, **geo)
+    p = ttk.sample_segments_windowed_plain(tabs, *prep, **geo)
+    torch.cuda.synchronize()
+    assert _cuda.launches["sampler"] == 1
+    assert _equal(k, p)
+    want = ttex.sample_texture_planes(
+        ttex.Texture(data=data.cuda(), wrap=wrap), u.cuda(), v.cuda())
+    covc = cov.cuda()
+    for ch in range(c):
+        assert _equal(k[ch][covc], want[ch][covc])
+
+
+def test_sampler_backward_matches_plain_autograd():
+    th, tw, c, wrap = 256, 256, 3, "repeat"
+    _, _, _, cov, tabs, (xa, dy, fx, fy, y0, nwin) = _sampler_case(
+        th, tw, c, wrap)
+    geo = dict(th=th, tw=tw, wrap=wrap)
+    cot = torch.randn((c,) + tuple(xa.shape),
+                      generator=torch.Generator().manual_seed(4)).cuda()
+    grads = []
+    for fn in (ttk.sample_segments_windowed,
+               ttk.sample_segments_windowed_plain):
+        args = [t.clone().requires_grad_(True) for t in (tabs, fx, fy)]
+        out = fn(args[0], xa, dy, args[1], args[2], y0, nwin, **geo)
+        grads.append(torch.autograd.grad(out, args, cot))
+    torch.cuda.synchronize()
+    for gk, gp in zip(*grads):
+        assert float((gk - gp).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("name", ["config2", "config4"])
+def test_render_windowed_on_card_matches_cpu(name, monkeypatch):
+    rp = scenes.config4_many_objects(0.0, width=256, height=192,
+                                     triangles=3000, device="cpu") \
+        if name == "config4" else _scene("config2")
+    monkeypatch.setattr(ttex, "TEX_WINDOWED", "1")
+    fb_c = render(rp)
+    _cuda.reset_launches()
+    fb_g = render(rp.to("cuda"))
+    torch.cuda.synchronize()
+    assert _cuda.launches["sampler"] == 1
+    cg, dg = fb_g.color.cpu(), fb_g.depth.cpu()
+    assert bool(fb_c.color[..., 3].any())
+    assert _equal(cg[..., 3], fb_c.color[..., 3])
+    assert _equal(dg, fb_c.depth)
+    assert float((cg - fb_c.color).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("mode", ["0", "1"])
+def test_texture_train_step_on_card_matches_cpu(mode, monkeypatch):
+    """One step at config 2 (128x128, 2 frames): the card's new texture
+    within 1e-5 of the CPU's (the gradient's index-adds sum in another
+    order; lr 5000 moves texels by up to ~0.02)."""
+    monkeypatch.setattr(ttex, "TEX_WINDOWED", mode)
+    rp = scenes.config2_textured_cube(0.1, width=128, height=128,
+                                      device="cpu")
+    ts = torch.stack([rp.transform, scenes.config2_textured_cube(
+        1.1, width=128, height=128, device="cpu").transform])
+    targets = render_batch(rp, ts).color
+    tex0 = torch.full_like(rp.texture.data, 0.5)
+    new_c, loss_c = texture_train_step(tex0, rp, ts, targets, lr=5000.0)
+    _cuda.reset_launches()
+    new_g, loss_g = texture_train_step(tex0.cuda(), rp.to("cuda"),
+                                       ts.cuda(), targets.cuda(), lr=5000.0)
+    torch.cuda.synchronize()
+    assert _cuda.launches["sampler"] == (2 if mode == "1" else 0)
+    assert float((new_c - tex0).abs().max()) > 1e-2
+    assert abs(float(loss_g) - float(loss_c)) <= 1e-5 * float(loss_c)
+    assert float((new_g.cpu() - new_c).abs().max()) <= 1e-5
+
+
+def test_geometry_grads_on_card_warn_and_zero():
+    rp = _scene("config2").to("cuda")
+    pos = rp.mesh.positions.clone().requires_grad_(True)
+    rp = dataclasses.replace(rp, mesh=dataclasses.replace(rp.mesh,
+                                                          positions=pos))
+    with pytest.warns(UserWarning, match="fused pipeline stops"):
+        g, = torch.autograd.grad(render(rp).color.sum(), pos)
+    assert not bool(g.any())
+    tex = rp.texture.data.clone().requires_grad_(True)
+    rp = dataclasses.replace(rp, texture=ttex.Texture(data=tex))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        g, = torch.autograd.grad(render(rp).color.sum(), tex)
+    assert bool(g.any())
+
+
+def test_probe_kernels_match_plain():
+    _cuda.reset_launches()
+    res = probe.run(device="cuda")
+    assert all(s[3] for s in res["shapes"]) and res["lookup_exact"]
+    # The timing's calls are not counted: one launch per checked lookup.
+    assert _cuda.launches["take_along_axis"] == len(probe.SHAPES)
+    assert _cuda.launches["window_lookup"] == 1
+    assert res["lookup_ms"] > 0 and res["row_gather_ms"] > 0
+
+
+def test_texture_wrappers_raise_on_bad_input():
+    _, _, _, _, tabs, prep = _sampler_case(128, 128, 1, "repeat", cap=4)
+    geo = dict(th=128, tw=128, wrap="repeat")
+    with pytest.raises(TypeError):
+        ttk.sampler_kernel(tabs.double(), *prep, **geo)
+    with pytest.raises(ValueError):     # the table lacks its padded rows
+        ttk.sampler_kernel(tabs[:, :128].contiguous(), *prep, **geo)
+    with pytest.raises(ValueError):     # xa on the CPU
+        ttk.sampler_kernel(tabs, prep[0].cpu(), *prep[1:], **geo)
+    with pytest.raises(ValueError):     # dy of the wrong shape
+        ttk.sampler_kernel(tabs, prep[0], prep[1][:2], *prep[2:], **geo)
+    x = torch.zeros((8, 128), device="cuda")
+    idx = torch.zeros((8, 128), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        probe.take_along_axis(x, idx, 2)
+    with pytest.raises(TypeError):
+        probe.take_along_axis(x, idx.long(), 0)
+    with pytest.raises(ValueError):
+        probe.window_lookup(x, torch.zeros(2, dtype=torch.int32,
+                                           device="cuda"), idx, idx)

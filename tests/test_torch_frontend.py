@@ -140,6 +140,9 @@ def test_import_leaves_jax_out():
         "import software_renderer_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "for m in ('ops.texture_kernel', 'parallel.batch',"
+        " 'parallel.sharding', 'tools.probe_dyngather'):\n"
+        "    assert p.__name__ + '.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'software_renderer_tpu'"
         " or m.startswith('software_renderer_tpu.')]\n"
