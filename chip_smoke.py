@@ -43,9 +43,11 @@ the script exits non-zero without printing a result:
 10. the gather probe (K8) through its entry point, with the counters
    reset just before it.
 
-Phase 3 also holds K7 (at config-4 frame-0 shapes, against its plain
-version and the quad-table sampler) and K8 (at the probe's shapes) with
-their times, bounds and library times.
+Phase 3 also holds K3' on large triangles (config 2's cube at 1920x1080)
+against its plain version, K7 (at config-4 frame-0 shapes, against its
+plain version and the quad-table sampler) and K8 (at the probe's shapes)
+with their times, bounds and library times; it prints the redesigned
+kernels' times beside their previous design's (EARLIER_MS).
 
 Each kernel's bound is the larger of the bytes it must move over the
 card's memory rate and the float32 operations this run's data needs over
@@ -104,6 +106,14 @@ TRAIN_TOL = 1e-5
 LIBRARY_TOL = 1e-5
 # The render path's pair budget for culled scenes (render.py).
 BUDGET = 0.85
+# Times (ms) of the previous design of the kernels that were redesigned
+# for this card, as PERF.md section 6 records them (NVIDIA H100 80GB
+# HBM3, 700.00 W): the record walk that staged every record for each
+# 16x16 block (K3 on the overflow set, K3' on every record) and the window
+# lookup that staged an [8, 256] window per segment (K8). Printed beside
+# this run's times in phase 3, never in the kernels line.
+EARLIER_MS = {"visibility_merge": 10.59, "visibility": 69.68,
+              "window_lookup": 0.0175}
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, 700 W): float32
 # outside the tensor cores, and HBM3.
@@ -294,7 +304,7 @@ def phase_kernels(dev):
     res["visibility_merge"] = dict(
         max_abs_err=max_err(z3, z3p),
         ms=cuda_ms(lambda: visibility_merge_kernel(rec, z0, i0, width=w,
-                                                   height=h), 5),
+                                                   height=h), 20),
         plain_ms=cuda_ms(lambda: visibility_merge_plain(
             rec, z0, i0, width=w, height=h), 1),
         shape=f"{ov.numel()} overflow records",
@@ -353,9 +363,25 @@ def phase_kernels(dev):
     sync()
     assert_bit_equal(io, i3, "K3' vs K3 ids")
     assert_bit_equal(zo, z3, "K3' vs K3 depth")
+    # K3' on large triangles: config 2's cube at the same 1920x1080 frame,
+    # each of its records over many tiles.
+    cube = scenes.config2_textured_cube(0.7, width=w, height=h, device=dev)
+    rec_cube = fe.pack_records_planar(triangle_inputs(cube)[0], 128)
+    zb, ib = visibility_kernel(rec_cube, width=w, height=h)
+    zbp, ibp = visibility_plain(rec_cube, width=w, height=h)
+    sync()
+    assert bool((ib >= 0).any())
+    assert_bit_equal(ib, ibp, "K3' ids, cube at 1080p")
+    assert_bit_equal(zb, zbp, "K3' depth, cube at 1080p")
+    print(f"K3' on config 2's cube at {w}x{h} ({rec_cube.shape[0]} records, "
+          f"coverage {float((ib >= 0).float().mean())}) equals its plain "
+          f"version", flush=True)
     res["visibility"] = dict(
-        max_abs_err=max_err(zc, zcp),
-        ms=cuda_ms(lambda: visibility_kernel(rec_all, width=w, height=h), 5),
+        max_abs_err=max(max_err(zc, zcp), max_err(zb, zbp)),
+        ms=cuda_ms(lambda: visibility_kernel(rec_all, width=w, height=h),
+                   20),
+        cube_1080p_ms=cuda_ms(lambda: visibility_kernel(
+            rec_cube, width=w, height=h), 20),
         plain_ms=cuda_ms(lambda: visibility_plain(rec_all, width=w,
                                                   height=h), 1),
         shape=f"{rec_all.shape[0]} records, {int(ps.valid.sum())} valid",
@@ -408,6 +434,8 @@ def phase_kernels(dev):
         **bound(resolve_bytes(rows_b, n_won, a, starts, i5, g6),
                 w * h * (4 * a + math.ceil(math.log2(longest + 1)))))
     for name, r in res.items():
+        if name in EARLIER_MS:
+            r["earlier_ms"] = EARLIER_MS[name]
         print(f"  {name}: {json.dumps(r)}", flush=True)
     _cuda.reset_launches()
     return res
@@ -693,6 +721,7 @@ def phase_texture_kernels(dev):
         shape=f"{probe.SEGS}x{probe.LANES} lanes, "
               f"{probe.TABLE}x{probe.TABLE} table",
         **bound(nbytes(tab, y0, ty, tx, lk), 0, library_ms=plain_wl))
+    res["window_lookup"]["earlier_ms"] = EARLIER_MS["window_lookup"]
     for name in ("sampler", "take_along_axis", "window_lookup"):
         print(f"  {name}: {json.dumps(res[name])}", flush=True)
     _cuda.reset_launches()

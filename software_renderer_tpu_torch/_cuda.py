@@ -44,9 +44,11 @@ _SIGNATURES = {
     "sr_fe": (_P, _I, _P, _I, _I, _I, _I, _F, _P, _P),
     "sr_fused": (_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                  _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
-    "sr_visibility_merge": (_P, _I, _P, _P, _I, _I, _I, _P, _P, _P),
+    "sr_visibility_scratch": (_I, _I, _I, _P),
+    "sr_visibility_merge": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+                            _P),
     "sr_resolve_merge": (_P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P),
-    "sr_visibility": (_P, _I, _I, _I, _I, _P, _P, _P),
+    "sr_visibility": (_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     "sr_binned_vis": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "sr_resolve": (_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
     "sr_sampler": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P),
@@ -145,9 +147,11 @@ def stream_of(t: torch.Tensor) -> int:
 
 
 def require(t: torch.Tensor, dtype, name: str, *, device=None, ndim=None,
-            shape=None) -> None:
+            shape=None, align=None) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (and of
-    ``device``, ``ndim`` and ``shape`` where given)."""
+    ``device``, ``ndim`` and ``shape`` where given, and starting at an
+    address that is a multiple of ``align`` bytes, for a kernel's vector
+    loads)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if device is not None and t.device != torch.device(device):
@@ -161,3 +165,5 @@ def require(t: torch.Tensor, dtype, name: str, *, device=None, ndim=None,
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
+    if align is not None and t.data_ptr() % align:
+        raise ValueError(f"{name} must start at a multiple of {align} bytes")

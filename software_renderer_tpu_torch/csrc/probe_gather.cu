@@ -4,11 +4,14 @@
 // (:69). The plain versions are window_lookup_plain (tab[ty, tx]) and
 // torch.take_along_axis.
 //
-// sr_window_lookup: one block per 1x128 segment stages the segment's
-// [8, tw] table window at row y0 in shared memory with coalesced loads,
-// then each of the 128 threads picks (ty - y0, tx) out of it. The TPU
-// needed the window because its per-lane gather works on one vreg; here
-// it measures a staged lookup against the library's row gather.
+// sr_window_lookup: each thread takes four neighbouring lanes of one
+// 1x128 segment: one 16-byte load each of their ty and tx, the segment's
+// y0, four texel loads through the read-only path, one 16-byte store. A
+// lane's row is its ty clamped into the segment's 8-row window at y0, as
+// the TPU kernel's window allows. The TPU staged the window because its
+// per-lane gather works within one vreg; on this card the table (256 KB in
+// the probe) stays in L2, and a staged window would read 8 KB per segment
+// to use 512 B of it.
 //
 // sr_take_along_axis: out[i, j] = x[idx[i, j], j] (axis 0) or
 // x[i, idx[i, j]] (axis 1), one thread per element.
@@ -25,21 +28,21 @@ constexpr int kThreads = 256;
 
 __global__ void window_lookup_kernel(const float* __restrict__ tab, int th,
                                      int tw, const int* __restrict__ y0,
-                                     const int* __restrict__ ty,
-                                     const int* __restrict__ tx,
-                                     float* __restrict__ out) {
-  extern __shared__ float win[];  // [kWin, tw]
-  const int seg = blockIdx.x;
-  const int base = min(max(y0[seg], 0), th - 1);
-  for (int i = threadIdx.x; i < kWin * tw; i += kLanes) {
-    const int row = min(base + i / tw, th - 1);
-    win[i] = tab[(size_t)row * tw + i % tw];
-  }
-  __syncthreads();
-  const size_t p = (size_t)seg * kLanes + threadIdx.x;
-  const int r = min(max(ty[p] - base, 0), kWin - 1);
-  const int col = min(max(tx[p], 0), tw - 1);
-  out[p] = win[r * tw + col];
+                                     const int4* __restrict__ ty,
+                                     const int4* __restrict__ tx,
+                                     size_t quads, float4* __restrict__ out) {
+  const size_t q = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  if (q >= quads) return;
+  const int base = min(max(__ldg(y0 + q / (kLanes / 4)), 0), th - 1);
+  const int4 y = __ldg(ty + q);
+  const int4 x = __ldg(tx + q);
+  auto texel = [&](int yy, int xx) {
+    const int row = min(base + min(max(yy - base, 0), kWin - 1), th - 1);
+    const int col = min(max(xx, 0), tw - 1);
+    return __ldg(tab + (size_t)row * tw + col);
+  };
+  out[q] = make_float4(texel(y.x, x.x), texel(y.y, x.y), texel(y.z, x.z),
+                       texel(y.w, x.w));
 }
 
 __global__ void take_along_axis_kernel(const float* __restrict__ x, int s,
@@ -59,12 +62,13 @@ __global__ void take_along_axis_kernel(const float* __restrict__ x, int s,
 extern "C" int sr_window_lookup(const float* tab, int th, int tw,
                                 const int* y0, const int* ty, const int* tx,
                                 int segs, float* out, void* stream) {
-  const size_t smem = (size_t)kWin * tw * sizeof(float);
-  if (th < 1 || tw < 1 || segs < 0 || smem > 48 * 1024)
-    return (int)cudaErrorInvalidValue;
+  if (th < 1 || tw < 1 || segs < 0) return (int)cudaErrorInvalidValue;
   if (segs == 0) return (int)cudaSuccess;
-  window_lookup_kernel<<<segs, kLanes, smem, (cudaStream_t)stream>>>(
-      tab, th, tw, y0, ty, tx, out);
+  const size_t quads = (size_t)segs * (kLanes / 4);
+  const unsigned blocks = (unsigned)((quads + kThreads - 1) / kThreads);
+  window_lookup_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      tab, th, tw, y0, reinterpret_cast<const int4*>(ty),
+      reinterpret_cast<const int4*>(tx), quads, reinterpret_cast<float4*>(out));
   return (int)cudaGetLastError();
 }
 

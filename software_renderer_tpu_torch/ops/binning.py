@@ -277,39 +277,47 @@ def _walk_bins_plain(rows, bin_start, *, width: int, height: int,
     lmax = int(counts.max()) if nbins else 0
     block = PLAIN_BLOCK
     for j in range(0, lmax, block):
+        # Only the bins with a record left at j: a block of dead records
+        # changes no pixel.
+        act = torch.nonzero(counts > j).squeeze(1)
+        nact = act.numel()
+        xa, ya = xs[act], ys[act]
         kk = torch.arange(j, j + block, device=dev)
-        live = kk[None, :] < counts[:, None]           # [nbins, K]
-        r = rows[torch.clamp(starts[:, None] + kk, max=max(n_rows - 1, 0))]
-        r = r[..., None, None]                          # [nbins, K, W, 1, 1]
-        e0 = r[:, :, 0] * xs + r[:, :, 2] * ys + r[:, :, 4]
-        e1 = r[:, :, 1] * xs + r[:, :, 3] * ys + r[:, :, 5]
+        live = kk[None, :] < counts[act, None]          # [nact, K]
+        r = rows[torch.clamp(starts[act, None] + kk, max=max(n_rows - 1, 0))]
+        r = r[..., None, None]                          # [nact, K, W, 1, 1]
+        e0 = r[:, :, 0] * xa + r[:, :, 2] * ya + r[:, :, 4]
+        e1 = r[:, :, 1] * xa + r[:, :, 3] * ya + r[:, :, 5]
         e2 = r[:, :, 6] - e0 - e1
         inside = (e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0)
-        depth = r[:, :, 7] * xs + r[:, :, 8] * ys + r[:, :, 9]
+        depth = r[:, :, 7] * xa + r[:, :, 8] * ya + r[:, :, 9]
         ok = inside & live[..., None, None] & ~torch.isnan(depth)
-        cand = torch.where(ok, depth, float("inf"))    # [nbins, K, bh, tw]
+        cand = torch.where(ok, depth, float("inf"))    # [nact, K, bh, tw]
         bz = cand.min(dim=1, keepdim=True).values
         kpos = torch.arange(block, device=dev)[None, :, None, None]
         kwin = torch.where(ok & (cand == bz), kpos, block).min(dim=1).values
         has = kwin < block
         kwin = torch.clamp(kwin, max=block - 1)
-        tri = r[:, :, 10, 0, 0].to(torch.int32)         # [nbins, K]
-        bid = torch.gather(tri, 1, kwin.reshape(nbins, -1)).reshape(
+        tri = r[:, :, 10, 0, 0].to(torch.int32)         # [nact, K]
+        bid = torch.gather(tri, 1, kwin.reshape(nact, -1)).reshape(
             kwin.shape)
         zwin = torch.gather(cand, 1, kwin[:, None]).squeeze(1)
-        better = has & ((zwin < z) | ((zwin == z) & (bid < ids)))
-        z = torch.where(better, zwin, z)
-        ids = torch.where(better, bid, ids)
+        z_a, id_a = z[act], ids[act]
+        better = has & ((zwin < z_a) | ((zwin == z_a) & (bid < id_a)))
+        z[act] = torch.where(better, zwin, z_a)
+        ids[act] = torch.where(better, bid, id_a)
         if not a:
             continue
-        planes = r[:, :, REC_BASE:REC_BASE + 3 * a, 0, 0]  # [nbins, K, 3A]
+        planes = r[:, :, REC_BASE:REC_BASE + 3 * a, 0, 0]  # [nact, K, 3A]
         win = torch.gather(
-            planes, 1, kwin.reshape(nbins, -1, 1).expand(-1, -1, 3 * a))
-        win = win.reshape(*kwin.shape, 3 * a)           # [nbins, bh, tw, 3A]
+            planes, 1, kwin.reshape(nact, -1, 1).expand(-1, -1, 3 * a))
+        win = win.reshape(*kwin.shape, 3 * a)           # [nact, bh, tw, 3A]
+        acc_a = acc[act]
         for c in range(a):
-            val = (win[..., 3 * c] * xs[:, 0] + win[..., 3 * c + 1] * ys[:, 0]
+            val = (win[..., 3 * c] * xa[:, 0] + win[..., 3 * c + 1] * ya[:, 0]
                    + win[..., 3 * c + 2])
-            acc[:, c] = torch.where(better, val, acc[:, c])
+            acc_a[:, c] = torch.where(better, val, acc_a[:, c])
+        acc[act] = acc_a
     unbin = lambda s: _unbin_slabs(s, gh, gw, bands, tile_h,
                                    tile_w)[..., :height, :width]
     return unbin(z), unbin(ids), unbin(acc.transpose(0, 1))

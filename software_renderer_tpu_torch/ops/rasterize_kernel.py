@@ -12,15 +12,28 @@ instances of one kernel:
   :func:`visibility_pallas`): every record of the frame into the clear
   buffer, strict ``<`` in ascending id, so the first drawn wins ties.
 
-What bounds both on the card: arithmetic, about 24 float operations per
-(pixel, record) pair, over every record whose bbox meets a 16x16 pixel
-block. The design stages records in shared memory, skips a record for a
-whole block when its bbox misses the block, and drops the TPU's waves:
-the lex minimum does not depend on record order, and the clear mode
-walks the records in the order given.
+What bounds both on the card: finding, for each block of pixels, the
+records that can touch it, then about 24 float operations per (pixel,
+record) pair. A block that scanned all N records would read blocks x N
+records through L2, more than the raster takes at config 4, and a CSR
+list per tile built through a host sync and a sort costs more again. So
+the kernels cull in two levels with no host sync (header of
+csrc/visibility_merge.cu): a first pass gives each record the exact span
+of pixels its bbox clamp lets through; a second lists, per 256x128
+super-tile and per chunk of records, the records whose span meets the
+super-tile, in ascending order and in the chunk's own region of an
+N-entry list (so nothing waits for a total); then one 256-thread block
+per 32x32 tile, its pixels in registers, culls its super-tile's list
+with warp ballots into a shared-memory list, in order, and walks the
+survivors' staged records. The scratch (spans, lists, counts) is
+allocated here. The TPU's waves are dropped: the lex minimum does not
+depend on record order, and the clear mode walks the records in the
+order given.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -111,6 +124,34 @@ def visibility_merge_plain(rec, z_in, id_in, *, width: int, height: int,
     return z, ids
 
 
+def card_visibility(lib, rec, z_in=None, id_in=None, *, width: int,
+                    height: int, y_start: int = 0):
+    """Launch the card kernels of ``lib`` on checked CUDA inputs: the
+    merge mode from (z_in, id_in), or the clear mode when they are None.
+    Allocates the scratch the library asks for (per record a span, per
+    super-tile an N-entry list and a count per chunk of records). Returns
+    (z, id)."""
+    dev = rec.device
+    n = rec.shape[0]
+    sizes = (ctypes.c_longlong * 3)()
+    _cuda.check(lib.sr_visibility_scratch(n, width, height, sizes))
+    spans = torch.empty((sizes[0], 4), dtype=torch.int16, device=dev)
+    lst = torch.empty(sizes[1], dtype=torch.int32, device=dev)
+    cnt = torch.empty(sizes[2], dtype=torch.int32, device=dev)
+    z = torch.empty((height, width), dtype=torch.float32, device=dev)
+    ids = torch.empty((height, width), dtype=torch.int32, device=dev)
+    head = (rec.data_ptr(), n, spans.data_ptr(), lst.data_ptr(),
+            cnt.data_ptr())
+    tail = (width, height, y_start, z.data_ptr(), ids.data_ptr(),
+            _cuda.stream_of(rec))
+    if z_in is None:
+        _cuda.check(lib.sr_visibility(*head, *tail))
+    else:
+        _cuda.check(lib.sr_visibility_merge(
+            *head, z_in.data_ptr(), id_in.data_ptr(), *tail))
+    return z, ids
+
+
 def visibility_merge_kernel(rec, z_in, id_in, *, width: int, height: int,
                             y_start: int = 0):
     """Rasterize raster records ([N, REC_WIDTH] float32, bbox in columns
@@ -124,22 +165,17 @@ def visibility_merge_kernel(rec, z_in, id_in, *, width: int, height: int,
         return visibility_merge_plain(rec, z_in, id_in, width=width,
                                       height=height, y_start=y_start)
     dev = rec.device
-    _cuda.require(rec, torch.float32, "rec", ndim=2)
+    _cuda.require(rec, torch.float32, "rec", ndim=2, align=16)
     if rec.shape[1] != REC_WIDTH:
         raise ValueError(f"rec must be [N, {REC_WIDTH}]")
     _cuda.require(z_in, torch.float32, "z_in", device=dev,
                   shape=(height, width))
     _cuda.require(id_in, torch.int32, "id_in", device=dev,
                   shape=(height, width))
-    z = torch.empty_like(z_in)
-    ids = torch.empty_like(id_in)
     lib = _cuda.lib()
     _cuda.launches["visibility_merge"] += 1
-    _cuda.check(lib.sr_visibility_merge(
-        rec.data_ptr(), rec.shape[0], z_in.data_ptr(), id_in.data_ptr(),
-        width, height, y_start, z.data_ptr(), ids.data_ptr(),
-        _cuda.stream_of(rec)))
-    return z, ids
+    return card_visibility(lib, rec, z_in, id_in, width=width,
+                           height=height, y_start=y_start)
 
 
 def visibility_plain(rec, *, width: int, height: int, y_start: int = 0):
@@ -165,17 +201,13 @@ def visibility_kernel(rec, *, width: int, height: int, y_start: int = 0):
     if rec.device.type == "cpu":
         return visibility_plain(rec, width=width, height=height,
                                 y_start=y_start)
-    _cuda.require(rec, torch.float32, "rec", ndim=2)
+    _cuda.require(rec, torch.float32, "rec", ndim=2, align=16)
     if rec.shape[1] != REC_WIDTH:
         raise ValueError(f"rec must be [N, {REC_WIDTH}]")
-    z = torch.empty((height, width), dtype=torch.float32, device=rec.device)
-    ids = torch.empty((height, width), dtype=torch.int32, device=rec.device)
     lib = _cuda.lib()
     _cuda.launches["visibility"] += 1
-    _cuda.check(lib.sr_visibility(
-        rec.data_ptr(), rec.shape[0], width, height, y_start, z.data_ptr(),
-        ids.data_ptr(), _cuda.stream_of(rec)))
-    return z, ids
+    return card_visibility(lib, rec, width=width, height=height,
+                           y_start=y_start)
 
 
 def visibility_pallas(setup: TriangleSetup, *, width: int, height: int,

@@ -72,17 +72,23 @@ def window_lookup(tab, y0, ty, tx):
     """``tab[ty, tx]`` for lanes whose ``ty`` lies in their segment's
     window [y0, y0 + 8). tab: [th, tw] float32; y0: [S] int32; ty, tx:
     [S, 128] int32. CPU tensors run the plain version; CUDA tensors
-    launch ``sr_window_lookup``, which stages each segment's window in
-    shared memory (a ``ty`` outside the window reads the window's nearest
-    row)."""
+    launch ``sr_window_lookup``: one thread per four lanes reads their
+    ``ty`` and ``tx`` with one 16-byte load each and their texels straight
+    from the table, which stays in L2 (no staged window). It clamps as the
+    TPU kernel's window does: row ``min(base + clamp(ty - base, 0, 7),
+    th - 1)`` with ``base = clamp(y0, 0, th - 1)``, column ``clamp(tx, 0,
+    tw - 1)``, so a ``ty`` outside the window reads the window's nearest
+    row."""
     if tab.device.type == "cpu":
         return window_lookup_plain(tab, y0, ty, tx)
     dev = tab.device
     _cuda.require(tab, torch.float32, "tab", ndim=2)
     segs = y0.shape[0]
     _cuda.require(y0, torch.int32, "y0", device=dev, ndim=1)
-    _cuda.require(ty, torch.int32, "ty", device=dev, shape=(segs, LANES))
-    _cuda.require(tx, torch.int32, "tx", device=dev, shape=(segs, LANES))
+    _cuda.require(ty, torch.int32, "ty", device=dev, shape=(segs, LANES),
+                  align=16)
+    _cuda.require(tx, torch.int32, "tx", device=dev, shape=(segs, LANES),
+                  align=16)
     out = torch.empty((segs, LANES), dtype=torch.float32, device=dev)
     lib = _cuda.lib()
     _cuda.launches["window_lookup"] += 1

@@ -99,9 +99,14 @@ def c4():
         "textured", m.triangles(), colors=m.colors, normals=m.normals,
         uvs=m.uvs)
     attrs_t = torch.from_numpy(np.array(attrs_j))
+    # The JAX barycentric resolve of the reference winners, shared by the
+    # resolve comparisons below.
+    ws_j, cov_j = jbarycentrics(s_j, ij)
     out = dict(rp=rp, s_j=s_j, s_t=s_t, ps_t=ps_t, dj=np.asarray(dj),
                ij=np.asarray(ij), dt=dt, it=it, attrs_j=attrs_j,
-               attrs_t=attrs_t, cols_t=tfe.attr_corner_cols(attrs_t))
+               attrs_t=attrs_t, cols_t=tfe.attr_corner_cols(attrs_t),
+               ws_j=np.asarray(ws_j),
+               gj=np.asarray(jinterp(attrs_j, ij, ws_j, cov_j)))
     out["free"] = _binned(out)   # the spill-free binned frame
     return out
 
@@ -149,9 +154,7 @@ def test_binned_pipeline_matches_jax_reference(c4, spill):
     np.testing.assert_array_equal(g0.numpy(), g1.numpy())
     np.testing.assert_array_equal(c4["ij"], i1.numpy())
     _assert_depth_class(c4["dj"], d1, i1, c4["s_t"])
-    ids = jnp.asarray(c4["ij"])
-    ws, cov = jbarycentrics(c4["s_j"], ids)
-    gj = np.asarray(jinterp(c4["attrs_j"], ids, ws, cov))
+    gj = c4["gj"]
     assert g1.shape == gj.shape
     np.testing.assert_allclose(gj, g1.numpy(), atol=1e-4)
 
@@ -162,8 +165,7 @@ def test_resolve_equals_barycentric_interpolation(c4):
     rp = c4["rp"]
     ws, cov = barycentrics_at_pixels(c4["s_t"], c4["it"])
     g_bary = interpolate_attribute(c4["attrs_t"], c4["it"], ws, cov)
-    ws_j, _ = jbarycentrics(c4["s_j"], jnp.asarray(c4["ij"]))
-    np.testing.assert_allclose(np.asarray(ws_j)[c4["ij"] >= 0],
+    np.testing.assert_allclose(c4["ws_j"][c4["ij"] >= 0],
                                ws.numpy()[cov.numpy()], atol=1e-6)
     _, _, g_planes = c4["free"]
     np.testing.assert_allclose(g_bary.numpy(), g_planes.numpy(), atol=1e-4)

@@ -7,9 +7,17 @@ exact: per-bin id lists, overflow masks, winner ids. Depths agree within
 the FMA-contraction class (XLA:CPU may contract the depth plane's
 multiply-adds; torch rounds each operation). Shaded planes are compared
 at atol 1e-4: the same contraction ulps, amplified by the specular pow.
+
+The JAX bin build, fused pipeline and resolve run under one ``jax.jit``
+each (``_jit``): the same computation as one XLA program, which the
+persistent compilation cache keeps between runs, instead of op-by-op
+dispatch. The front-end and the reference visibility pass stay op by op:
+under jit XLA:CPU contracts their multiply-adds into FMAs, which moves
+coverage at a few edge pixels.
 """
 from functools import partial
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,6 +37,12 @@ from software_renderer_tpu_torch.ops.rasterize_kernel import (
     visibility_merge_plain)
 
 torch.set_num_threads(1)
+
+
+def _jit(fn, **static):
+    """``fn`` with the keyword arguments ``static`` bound, under one
+    jax.jit."""
+    return jax.jit(partial(fn, **static))
 
 
 def _scene(rp):
@@ -99,13 +113,23 @@ def c4():
     return rp, _scene(rp)
 
 
+@pytest.fixture(scope="module")
+def c4_ref(c4):
+    """The JAX reference visibility pass of ``c4``'s setup: (array
+    setup, depth, ids)."""
+    rp, (ps_j, *_rest) = c4
+    s_j = jfe.to_setup(ps_j)
+    dj, ij = visibility_ref(s_j, width=rp.width, height=rp.height)
+    return s_j, np.asarray(dj), np.asarray(ij)
+
+
 @pytest.mark.parametrize("bands,budget", [(1, 1.5), (4, 0.85), (4, 0.1)])
 def test_build_bins_matches_jax(c4, bands, budget):
     rp, (ps_j, ps_t, *_rest) = c4
     assert 2048 <= ps_t.num_triangles < 4096
     kw = dict(width=rp.width, height=rp.height, chunk=128, kmax=12 * bands,
               pair_budget_factor=budget, bands=bands)
-    info_j = jbin.build_bins(ps_j, glen=16, **kw)
+    info_j = _jit(jbin.build_bins, glen=16, **kw)(ps_j)
     info_t = tbin.build_bins(ps_t, **kw)
     np.testing.assert_array_equal(np.asarray(info_j.overflow_mask),
                                   info_t.overflow_mask.numpy())
@@ -129,11 +153,11 @@ def test_fused_plain_matches_jax_interpret():
     rp = jscenes.config2_textured_cube(0.7, width=192, height=128)
     ps_j, ps_t, attrs_j, attrs_t, chans, prm_j, prm_t, hl = _scene(rp)
     out_chans = jsh.fused_output_channels(rp.shading, chans, hl, True)
-    dj, ij, oj = jbin.fused_pipeline(
-        ps_j, attrs_j, prm_j, width=rp.width, height=rp.height,
+    dj, ij, oj = _jit(
+        jbin.fused_pipeline, width=rp.width, height=rp.height,
         epilogue=partial(jsh.fused_epilogue, chans=chans, has_light=hl,
                          has_texture=True),
-        n_out=sum(s for _, s in out_chans), chunk=16)
+        n_out=sum(s for _, s in out_chans), chunk=16)(ps_j, attrs_j, prm_j)
     # chunk=16 keeps the interpreter's unrolled kernel bodies small; it is
     # pure layout in JAX and, in both packages, the budget rounding unit.
     dt, it, ot = _run_port(ps_t, attrs_t, prm_t, rp, chans, hl, chunk=16)
@@ -164,31 +188,30 @@ def test_fused_all_spill_equals_binned(c4, which):
     np.testing.assert_array_equal(o0.numpy(), o1.numpy())
 
 
-def test_fused_ids_depth_match_visibility_ref(c4):
-    rp, (ps_j, ps_t, _, attrs_t, chans, _, prm_t, hl) = c4
-    dj, ij = visibility_ref(jfe.to_setup(ps_j), width=rp.width,
-                            height=rp.height)
+def test_fused_ids_depth_match_visibility_ref(c4, c4_ref):
+    rp, (_, ps_t, _, attrs_t, chans, _, prm_t, hl) = c4
+    _, dj, ij = c4_ref
     dt, it, _ = _run_port(ps_t, attrs_t, prm_t, rp, chans, hl,
                           pair_budget_factor=0.85)
     assert bool((it >= 0).any())
-    np.testing.assert_array_equal(np.asarray(ij), it.numpy())
-    _assert_depth_class(np.asarray(dj), dt, it, ps_t)
+    np.testing.assert_array_equal(ij, it.numpy())
+    _assert_depth_class(dj, dt, it, ps_t)
 
 
-def test_overflow_kernels_plain_match_jax(c4):
+def test_overflow_kernels_plain_match_jax(c4, c4_ref):
     """visibility_merge over every record into a clear buffer is the
     reference visibility pass; resolve_merge's planes equal the JAX
     barycentric resolve (algebraically equal, atol 1e-4)."""
-    rp, (ps_j, ps_t, attrs_j, attrs_t, chans, _, _, _) = c4
+    rp, (_, ps_t, attrs_j, attrs_t, chans, _, _, _) = c4
+    s_j, dj, ij = c4_ref
     w, h = rp.width, rp.height
     rec = tfe.pack_records_planar(ps_t, 128)
     z0 = torch.full((h, w), float("inf"))
     i0 = torch.full((h, w), -1, dtype=torch.int32)
     zt, it = visibility_merge_plain(rec, z0, i0, width=w, height=h)
-    s_j = jfe.to_setup(ps_j)
-    dj, ij = visibility_ref(s_j, width=w, height=h)
-    np.testing.assert_array_equal(np.asarray(ij), it.numpy())
-    _assert_depth_class(np.asarray(dj), zt, it, ps_t)
+    np.testing.assert_array_equal(ij, it.numpy())
+    _assert_depth_class(dj, zt, it, ps_t)
+    ij = jnp.asarray(ij)
 
     table, a, poison = tfe.stream_table_planar(
         ps_t, tfe.attribute_plane_cols(ps_t, attrs_t))
@@ -197,8 +220,8 @@ def test_overflow_kernels_plain_match_jax(c4):
     gb = tbin.resolve_merge_plain(rows, it, torch.zeros((a, h, w)),
                                   width=w, height=h)
     attrs = jnp.stack([jnp.stack(v, axis=-1) for v in attrs_j], axis=-1)
-    ws, cov = barycentrics_at_pixels(s_j, ij)
-    gj = np.asarray(interpolate_attribute(attrs, ij, ws, cov))
+    ws, cov = jax.jit(barycentrics_at_pixels)(s_j, ij)
+    gj = np.asarray(jax.jit(interpolate_attribute)(attrs, ij, ws, cov))
     assert bool(np.asarray(cov).any())
     np.testing.assert_allclose(np.moveaxis(gj, -1, 0), gb.numpy(),
                                atol=1e-4)

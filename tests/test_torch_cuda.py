@@ -15,6 +15,7 @@ their plain versions bit for bit.
 import dataclasses
 import warnings
 
+import numpy as np
 import pytest
 import torch
 
@@ -136,6 +137,122 @@ def test_backend_kernels_match_plain(bands):
     assert g.shape == (h, w, a) and bool(torch.isfinite(g).all())
 
 
+def _tri_records(seed, n, w, h, centre=((-1.0, 1.0), (-1.0, 1.0)),
+                 size=0.2):
+    """Raster records of ``n`` random triangles (corners within ``size``
+    of centres drawn in the NDC box ``centre``, depth in (0.1, 0.9)),
+    through the port's front-end on a w x h frame: ascending id, invalid
+    rows poisoned, padded to a multiple of 128. On the card."""
+    rng = np.random.default_rng(seed)
+    (x0, x1), (y0, y1) = centre
+    c = np.stack([rng.uniform(x0, x1, n), rng.uniform(y0, y1, n)], -1)
+    xy = c[:, None, :] + rng.uniform(-size, size, (n, 3, 2))
+    z = rng.uniform(0.1, 0.9, (n, 3, 1))
+    corners = np.concatenate([xy, z], -1).astype(np.float32)
+    ps = fe.planar_front(fe.corner_cols(torch.from_numpy(corners)),
+                         torch.eye(4), w, h)
+    return fe.pack_records_planar(ps, 128).cuda()
+
+
+def _vis_case(case):
+    """(records, width, height, y_start) of one visibility case."""
+    if case == "ragged":          # 200x150: no side a multiple of 64
+        return _tri_records(1, 300, 200, 150), 200, 150, 0
+    if case == "y_start":         # rows [37, 137) of a 160x200 frame
+        return _tri_records(2, 300, 160, 200), 160, 100, 37
+    if case == "full_frame":      # one triangle beyond every frame edge
+        rec = torch.cat([_full_frame_record(200, 150),
+                         _tri_records(4, 40, 200, 150)])
+        return rec, 200, 150, 0
+    if case == "crowded":         # > 2048 records in one tile: more than
+        # the block's shared list holds (2048), over two chunks of records
+        rec = _tri_records(5, 5000, 256, 256, ((-0.98, -0.8), (0.8, 0.98)),
+                           size=0.04)
+        inside = (rec[:, 12] < 32) & (rec[:, 13] < 32) & (rec[:, 14] >= 0)
+        assert int(inside.sum()) > 2048 and rec.shape[0] > 4096
+        return rec, 256, 256, 0
+    if case == "nan":             # every third record's depth plane NaN
+        rec = _tri_records(6, 300, 200, 150)
+        rec[::3, 9] = float("nan")
+        return rec, 200, 150, 0
+    if case == "n0":
+        return torch.zeros((0, 16), device="cuda"), 200, 150, 0
+    assert case == "n129"
+    return _tri_records(7, 200, 200, 150)[:129].contiguous(), 200, 150, 0
+
+
+def _full_frame_record(w, h):
+    """One record whose triangle and bbox cover a whole w x h frame."""
+    corners = torch.tensor([[[-5.0, -5.0, 0.5], [5.0, -5.0, 0.5],
+                             [0.0, 5.0, 0.5]]])
+    ps = fe.planar_front(fe.corner_cols(corners), torch.eye(4), w, h)
+    rec = fe.pack_records_planar(ps, 128)[:1].cuda()
+    assert rec[0, 10:14].tolist() == [0.0, 0.0, w - 1.0, h - 1.0]
+    return rec
+
+
+@pytest.mark.parametrize("case", ["ragged", "y_start", "full_frame",
+                                  "crowded", "nan", "n0", "n129"])
+def test_visibility_template_matches_plain(case):
+    """Both modes of csrc/visibility_merge.cu against their plain versions,
+    bit for bit in depth and id: clear (K3'), merge from the clear buffer
+    and merge from a seeded buffer (K3)."""
+    rec, w, h, y0 = _vis_case(case)
+    geo = dict(width=w, height=h, y_start=y0)
+    g = torch.Generator().manual_seed(8)
+    seed_z = torch.where(torch.rand((h, w), generator=g) < 0.5,
+                         torch.rand((h, w), generator=g), float("inf"))
+    seed_id = torch.where(torch.isinf(seed_z), -1, 7).to(torch.int32)
+    clear = (torch.full((h, w), float("inf"), device="cuda"),
+             torch.full((h, w), -1, dtype=torch.int32, device="cuda"))
+    _cuda.reset_launches()
+    zc, ic = visibility_kernel(rec, **geo)
+    zcp, icp = visibility_plain(rec, **geo)
+    torch.cuda.synchronize()
+    assert _equal(ic, icp) and _equal(zc, zcp)
+    for z0, i0 in (clear, (seed_z.cuda(), seed_id.cuda())):
+        zm, im = visibility_merge_kernel(rec, z0, i0, **geo)
+        zmp, imp = visibility_merge_plain(rec, z0, i0, **geo)
+        torch.cuda.synchronize()
+        assert _equal(im, imp) and _equal(zm, zmp)
+    assert _cuda.launches["visibility"] == 1
+    assert _cuda.launches["visibility_merge"] == 2
+    if rec.shape[0]:
+        assert bool((ic >= 0).any())
+    if case == "y_start":         # the band equals the full frame's rows
+        zf, i_f = visibility_kernel(rec, width=w, height=200)
+        torch.cuda.synchronize()
+        assert _equal(ic, i_f[y0:y0 + h]) and _equal(zc, zf[y0:y0 + h])
+    if case == "nan":             # a NaN depth never wins
+        nan_ids = rec[::3, 14][rec[::3, 14] >= 0].int()
+        assert not bool(torch.isin(ic, nan_ids).any())
+
+
+def test_visibility_ties_first_drawn_or_lower_id():
+    """Two records of one triangle at equal depth: the clear mode keeps
+    the first drawn in the order given, the merge mode the lower id in
+    either order."""
+    rec = _full_frame_record(200, 150)
+    pair = torch.cat([rec, rec])
+    pair[:, 14] = torch.tensor([3.0, 5.0], device="cuda")
+    clear = (torch.full((150, 200), float("inf"), device="cuda"),
+             torch.full((150, 200), -1, dtype=torch.int32, device="cuda"))
+    for order, first in ((pair, 3), (pair.flip(0).contiguous(), 5)):
+        zc, ic = visibility_kernel(order, width=200, height=150)
+        zm, im = visibility_merge_kernel(order, *clear, width=200,
+                                         height=150)
+        zmp, imp = visibility_merge_plain(order, *clear, width=200,
+                                          height=150)
+        torch.cuda.synchronize()
+        assert bool((ic >= 0).all())
+        assert bool((ic == first).all()) and bool((im == 3).all())
+        assert _equal(im, imp) and _equal(zm, zmp) and _equal(zc, zm)
+    zp, ip = visibility_plain(pair, width=200, height=150)
+    zc, ic = visibility_kernel(pair, width=200, height=150)
+    torch.cuda.synchronize()
+    assert _equal(ic, ip) and _equal(zc, zp)
+
+
 def _scene(name):
     """A small scene on the CPU (the card's frame is compared with it)."""
     cpu = dict(device="cpu")
@@ -199,6 +316,9 @@ def test_wrappers_raise_on_bad_input():
     with pytest.raises(ValueError):
         visibility_kernel(torch.zeros((8, 11), device="cuda"), width=8,
                           height=8)
+    with pytest.raises(ValueError):     # rows not 16-byte aligned
+        visibility_kernel(torch.zeros(8 * 16 + 1, device="cuda")[1:].view(
+            8, 16), width=8, height=8)
     rows = torch.zeros((4, 17), device="cuda")
     starts = torch.zeros(2, dtype=torch.int32, device="cuda")
     tid = torch.zeros((8, 8), dtype=torch.int32, device="cuda")
@@ -335,6 +455,31 @@ def test_probe_kernels_match_plain():
     assert _cuda.launches["take_along_axis"] == len(probe.SHAPES)
     assert _cuda.launches["window_lookup"] == 1
     assert res["lookup_ms"] > 0 and res["row_gather_ms"] > 0
+
+
+def test_window_lookup_clamps_outside_window_and_table():
+    """Lanes outside their segment's 8-row window and indices past every
+    edge of the table: the kernel reads row min(base + clamp(ty - base,
+    0, 7), th - 1) with base = clamp(y0, 0, th - 1) and column clamp(tx,
+    0, tw - 1); lanes inside their window and the table equal tab[ty,
+    tx]."""
+    rng = np.random.default_rng(11)
+    th, tw, segs = 40, 300, 9
+    tab = rng.random((th, tw)).astype(np.float32)
+    y0 = np.array([-5, 0, 3, 30, 36, 39, 45, 100, 17], np.int32)
+    ty = rng.integers(-20, 60, (segs, probe.LANES)).astype(np.int32)
+    ty[-1] = y0[-1] + rng.integers(0, probe.WIN, probe.LANES)
+    tx = rng.integers(-50, 350, (segs, probe.LANES)).astype(np.int32)
+    base = np.clip(y0, 0, th - 1)[:, None]
+    row = np.minimum(base + np.clip(ty - base, 0, probe.WIN - 1), th - 1)
+    want = tab[row, np.clip(tx, 0, tw - 1)]
+    got = probe.window_lookup(*(torch.from_numpy(a).cuda()
+                                for a in (tab, y0, ty, tx))).cpu().numpy()
+    assert np.array_equal(got, want)
+    ok = ((ty >= y0[:, None]) & (ty < y0[:, None] + probe.WIN) & (ty >= 0)
+          & (ty < th) & (tx >= 0) & (tx < tw))
+    assert ok.sum() > probe.LANES and (~ok).sum() > probe.LANES
+    assert np.array_equal(got[ok], tab[ty[ok], tx[ok]])
 
 
 def test_texture_wrappers_raise_on_bad_input():
