@@ -18,7 +18,8 @@ the script exits non-zero without printing a result:
 5. the main path: launch counters reset, then 8 frames of the config-4
    animation (bench.py's transform; frames 120, 240 and 600 spill, so the
    overflow kernels run on the path too) through render(); counters,
-   coverage, finiteness and ms/frame from CUDA events;
+   coverage, finiteness and ms/frame from CUDA events; device ms/frame
+   from a profile of the same frames;
 6. the same small scene rendered on the card and on the CPU (plain
    versions) with the auto, reference and pallas backends: alpha and
    depth bit-equal, color within 1e-3;
@@ -26,7 +27,8 @@ the script exits non-zero without printing a result:
    (0, 120, 240, 600): render(backend="pallas"), render(backend="binned"),
    flat shading (binned_pipeline without attributes) and
    binned_pipeline(ps, attrs), each with the counters reset just before
-   it and read just after; ms/frame of each; (depth, id) bit-equal across
+   it and read just after; ms/frame of each (CUDA events; device
+   ms/frame from a profile); (depth, id) bit-equal across
    the record walk (K3'), the binned pass (K5, K3 on spills) and the fused
    path (K2);
 8. the texture tail's routes: the 8 main-path frames through render()
@@ -46,8 +48,10 @@ the script exits non-zero without printing a result:
 Phase 3 also holds K3' on large triangles (config 2's cube at 1920x1080)
 against its plain version, K7 (at config-4 frame-0 shapes, against its
 plain version and the quad-table sampler) and K8 (at the probe's shapes)
-with their times, bounds and library times; it prints the redesigned
-kernels' times beside their previous design's (EARLIER_MS).
+with their times, bounds and library times; it times the seeded K2 on the
+kmax=1 spill set, prints the records per bin of K2's and K5's inputs
+(p50, p99, max), and prints the redesigned kernels' times beside their
+previous design's (EARLIER_MS).
 
 Each kernel's bound is the larger of the bytes it must move over the
 card's memory rate and the float32 operations this run's data needs over
@@ -84,6 +88,7 @@ from software_renderer_tpu_torch.parallel.sharding import texture_train_step
 from software_renderer_tpu_torch.render import triangle_inputs
 from software_renderer_tpu_torch.tools import probe_dyngather as probe
 from software_renderer_tpu_torch.tools.probe_dyngather import graph_ms
+from software_renderer_tpu_torch.tools.sweep_binned import percentiles
 
 # Shaded planes (kernel vs plain on the same card): both round every
 # operation the same way; only powf may differ from torch.pow by an ulp
@@ -109,11 +114,13 @@ BUDGET = 0.85
 # Times (ms) of the previous design of the kernels that were redesigned
 # for this card, as PERF.md section 6 records them (NVIDIA H100 80GB
 # HBM3, 700.00 W): the record walk that staged every record for each
-# 16x16 block (K3 on the overflow set, K3' on every record) and the window
-# lookup that staged an [8, 256] window per segment (K8). Printed beside
-# this run's times in phase 3, never in the kernels line.
+# 16x16 block (K3 on the overflow set, K3' on every record), the window
+# lookup that staged an [8, 256] window per segment (K8), and the bin walk
+# that tested every record of a bin on every pixel of its slab (K2 static,
+# K5). Printed beside this run's times in phase 3, never in the kernels
+# line.
 EARLIER_MS = {"visibility_merge": 10.59, "visibility": 69.68,
-              "window_lookup": 0.0175}
+              "window_lookup": 0.0175, "fused": 0.460, "binned_vis": 0.818}
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, 700 W): float32
 # outside the tensor cores, and HBM3.
@@ -259,12 +266,12 @@ def phase_kernels(dev):
                          *fe_args, cull_backfaces=True), 5),
                      shape=f"T={t}",
                      **bound(nbytes(cols, m16, rk), OPS_FE * t))
-    bbox = torch.stack([ps.bx0, ps.by0, ps.bx1, ps.by1], dim=1)
+    bbox = fe.bbox_table(ps)
 
     table, a, poison = fe.stream_table_planar(
         ps, fe.attribute_plane_cols(ps, attrs))
     kw = dict(width=w, height=h, chans=chans, has_light=True,
-              has_texture=True, bands=4)
+              has_texture=True, bands=4, bbox=bbox)
     info = tb.build_bins(ps, width=w, height=h, kmax=48,
                          pair_budget_factor=0.85, bands=4)
     rows = tb.gather_stream(table, info.ids, poison).contiguous()
@@ -275,10 +282,14 @@ def phase_kernels(dev):
     assert_bit_equal(zk, zp, "K2 depth")
     err2 = max_err(ok, op)
     assert err2 <= PLANE_TOL, f"K2 planes differ by {err2}"
+    # K2 and K5 by CUDA-graph replay: shorter than the host's launch
+    # overhead of their wrappers; launch_loop_ms is back-to-back calls.
     res["fused"] = dict(
         max_abs_err=err2,
-        ms=cuda_ms(lambda: tb.fused_kernel(rows, info.bin_start, prm, **kw),
-                   20),
+        ms=graph_ms(lambda: tb.fused_kernel(rows, info.bin_start, prm, **kw),
+                    20),
+        launch_loop_ms=cuda_ms(lambda: tb.fused_kernel(
+            rows, info.bin_start, prm, **kw), 20),
         plain_ms=cuda_ms(lambda: tb.fused_plain(rows, info.bin_start, prm,
                                                 **kw), 2),
         shape=f"{info.ids.numel()} pairs in {info.bin_start.numel() - 1} "
@@ -345,6 +356,10 @@ def phase_kernels(dev):
     assert_bit_equal(zs, zk, "seeded vs binned depth")
     res["fused"]["max_abs_err"] = max(err2, errs)
     res["fused"]["seeded_max_abs_err_vs_binned"] = max_err(os_, ok)
+    res["fused"]["seeded_ms"] = graph_ms(lambda: tb.fused_kernel(
+        rows1, info1.bin_start, prm, seeds=seeds, **kw), 20)
+    res["fused"]["seeded_shape"] = (f"{info1.ids.numel()} pairs, "
+                                    f"{ov.numel()} spilled")
     print(f"seeded fused (kmax=1, {ov.numel()} spilled) equals the binned "
           f"frame; planes max |d| {res['fused']['seeded_max_abs_err_vs_binned']}",
           flush=True)
@@ -393,17 +408,20 @@ def phase_kernels(dev):
     info_b = tb.build_bins(ps, width=w, height=h, pair_budget_factor=BUDGET)
     rows_b = tb.gather_stream(table, info_b.ids, poison).contiguous()
     starts = info_b.bin_start
-    z5, i5 = tb.binned_vis_kernel(rows_b, starts, width=w, height=h)
-    z5p, i5p = tb.binned_vis_plain(rows_b, starts, width=w, height=h)
+    geo5 = dict(width=w, height=h, bbox=bbox)
+    z5, i5 = tb.binned_vis_kernel(rows_b, starts, **geo5)
+    z5p, i5p = tb.binned_vis_plain(rows_b, starts, **geo5)
     sync()
     assert_bit_equal(i5, i5p, "K5 ids")
     assert_bit_equal(z5, z5p, "K5 depth")
     res["binned_vis"] = dict(
         max_abs_err=max_err(z5, z5p),
-        ms=cuda_ms(lambda: tb.binned_vis_kernel(rows_b, starts, width=w,
-                                                height=h), 20),
-        plain_ms=cuda_ms(lambda: tb.binned_vis_plain(rows_b, starts,
-                                                     width=w, height=h), 2),
+        ms=graph_ms(lambda: tb.binned_vis_kernel(rows_b, starts, **geo5),
+                    20),
+        launch_loop_ms=cuda_ms(lambda: tb.binned_vis_kernel(
+            rows_b, starts, **geo5), 20),
+        plain_ms=cuda_ms(lambda: tb.binned_vis_plain(rows_b, starts, **geo5),
+                         2),
         shape=f"{info_b.ids.numel()} pairs in {starts.numel() - 1} bins",
         **bound(rows_b.shape[0] * tb.REC_BASE * 4 + nbytes(starts, z5, i5),
                 OPS_TEST * bbox_pixels(
@@ -433,6 +451,13 @@ def phase_kernels(dev):
         shape=f"{info_b.ids.numel()} rows, {a} channels, {n_won} won",
         **bound(resolve_bytes(rows_b, n_won, a, starts, i5, g6),
                 w * h * (4 * a + math.ceil(math.log2(longest + 1)))))
+    # The bin walks' inputs: records per bin (a few long bins set their
+    # time).
+    for what, starts_ in (("K2 static", info.bin_start),
+                          ("K2 seeded (kmax=1)", info1.bin_start),
+                          ("K5", starts)):
+        print(f"records per bin, {what}: {json.dumps(percentiles(starts_))}",
+              flush=True)
     for name, r in res.items():
         if name in EARLIER_MS:
             r["earlier_ms"] = EARLIER_MS[name]
@@ -498,6 +523,10 @@ def phase_main(dev, card):
     print(f"  finite: {finite}", flush=True)
     print(f"  ms/frame (CUDA events, {card}): {times}; mean "
           f"{sum(times) / len(times)}", flush=True)
+    dev_ms = top_device_ops(lambda: [render(p) for p in passes],
+                            f"{len(passes)} main-path frames")
+    print(f"  device ms/frame (profiled kernels, {card}): "
+          f"{dev_ms / len(passes)}", flush=True)
     assert finite, "non-finite color"
     assert all(c > 0 for c in cov), "a frame covered nothing"
     for k in ("fe", "fused", "visibility_merge", "resolve_merge",
@@ -569,6 +598,10 @@ def phase_backends(dev, card):
               f"{json.dumps(launches[name])}", flush=True)
         print(f"  ms/frame (CUDA events, {card}): {times}; mean "
               f"{sum(times) / len(times)}", flush=True)
+        dev_ms = top_device_ops(lambda: [fn(p) for p in passes],
+                                f"{len(passes)} {name} frames")
+        print(f"  device ms/frame (profiled kernels, {card}): "
+              f"{dev_ms / len(passes)}", flush=True)
     need = {"pallas": ("fe", "visibility"),
             "binned": ("fe", "fused", "visibility_merge", "resolve_merge"),
             "flat": ("fe", "binned_vis"),
@@ -788,7 +821,8 @@ def phase_windowed_modes(dev, card):
 def top_device_ops(fn, what, n=6):
     """Run ``fn`` once under torch.profiler and print the ``n`` operators
     with the most device time (self time, ms) and the device total, then
-    the same for host (CPU self) time, with the host clock of the run."""
+    the same for host (CPU self) time, with the host clock of the run.
+    Returns the device total (ms of kernels and copies)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     t0 = time.perf_counter()
@@ -809,6 +843,7 @@ def top_device_ops(fn, what, n=6):
     avgs = prof.key_averages()
     kernels = [e for e in avgs
                if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(dev_us(e) for e in kernels) / 1e3
     for side, key, evts in (("device", dev_us, kernels),
                             ("host", host_us, list(avgs))):
         evts = sorted(evts, key=key, reverse=True)
@@ -818,6 +853,7 @@ def top_device_ops(fn, what, n=6):
         print(f"  profile of one {what}: {side} self time {total} ms"
               f"{f' (host clock {wall} ms)' if side == 'host' else ''}; "
               f"top (op, ms, calls): {top}", flush=True)
+    return device_ms
 
 
 def phase_training(dev, card):
@@ -931,7 +967,7 @@ def main():
                           "software_renderer_tpu/ops/binning.py:683"),
         "visibility": ("visibility_kernel", "visibility_merge.cu",
                        "software_renderer_tpu/ops/rasterize_pallas.py:110"),
-        "binned_vis": ("binned_vis_kernel", "binned_vis.cu",
+        "binned_vis": ("binned_vis_kernel", "fused.cu",
                        "software_renderer_tpu/ops/binning.py:607"),
         "resolve": ("resolve_kernel", "resolve.cu",
                     "software_renderer_tpu/ops/binning.py:663"),

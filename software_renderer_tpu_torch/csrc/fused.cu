@@ -1,39 +1,82 @@
-// Fused raster + shade over binned records: visibility, attribute planes
-// and the shading epilogue in one pass. Replaces the TPU kernel
-// _fused_kernel (software_renderer_tpu/ops/binning.py:703) in its static
-// and seeded variants; the plain version is fused_plain in
-// software_renderer_tpu_torch/ops/binning.py and the epilogue's is
-// fused_epilogue in ops/shading.py.
+// The binned record walk, as two instances of one template:
+//
+//   fused raster + shade (K2), entry sr_fused: visibility, the winners'
+//     attribute planes and the shading epilogue in one pass, static or
+//     seeded. Replaces the TPU kernel _fused_kernel
+//     (software_renderer_tpu/ops/binning.py:703) in both variants; plain
+//     version fused_plain in software_renderer_tpu_torch/ops/binning.py,
+//     the epilogue's fused_epilogue in ops/shading.py;
+//   binned visibility (K5), entry sr_binned_vis: the zero-channel instance
+//     with no epilogue. Replaces _binned_vis_kernel (:607); plain version
+//     binned_vis_plain.
 //
 // Layout: the records of bin b (one (tile, band) slab of 128 columns) are
-// rows bin_start[b] .. bin_start[b+1] of `rows`, in ascending triangle id.
-// One block of 256 threads shades a 16-row slab of one bin: grid.x walks
-// the bins, grid.y the 16-row slabs of a band taller than 16 rows. Thread
-// t owns column t % 128 and rows (t / 128) + 2 i, i < 8, and keeps their
-// depth, id and attribute accumulators in registers. The block stages the
-// bin's records in shared memory chunk by chunk and every thread walks
-// them in list order, so ties resolve by the walk (first drawn wins, or
-// the lex (depth, id) rule when seeded) with no atomics. Every pixel of
-// every bin is written, empty bins included.
+// rows bin_start[b] .. bin_start[b+1] of `rows`, in ascending triangle id;
+// column 10 holds the id, which indexes `bbox`, the planar setup's
+// inclusive int32 pixel bbox (x0, y0, x1, y1, absolute rows). Binned
+// triangles are coverage-safe (ops/setup.py coverage_safe): no pixel of
+// the frame outside its bbox passes a record's edge test. So a pixel need
+// only be tested against the records whose bbox holds it, and the walk
+// skips the rest with no change to any pixel.
+//
+// What bounds it: the (pixel, record) tests, and at config 4 the few long
+// bins (records per bin p50 0, max 782 for K2 and 1,786 for K5, whose
+// bins are whole 64 x 128 tiles). A bin's band is 16 x 128 pixels and a
+// config-4 triangle's bbox about 6 x 6, so the previous design, which
+// tested every record on every pixel of its band, did ~50x the tests the
+// data needs. Here one block of kThreads threads covers a kSlabH-row slab
+// of one bin, and each warp a kRectW x kRectH rectangle of it, kPix pixels
+// a lane in registers. The block stages kChunk records at a time in
+// shared memory, one a thread, with each record's bbox clipped to the slab
+// (one 32-bit word; empty for poison rows, id -1). Each warp then culls the
+// chunk 32 records at a time with one bbox test a lane and __ballot_sync,
+// and walks the survivors in list order, testing only the rows of lanes of
+// its rectangle that the bbox spans. Small rectangles keep the serial walk
+// of a warp in a long bin short: sweep_binned.py put 16 x 4 rectangles in
+// 8-row slabs first for K5 and within 4% of the first (8 x 8) for K2, and
+// 32 x 16 ones in 16-row slabs last (4x slower). Order is kept without
+// atomics, so the strict < (first drawn wins ties) and the seeded lex
+// (depth, id) rule hold as in the plain versions.
+//
+// The walk keeps no attribute accumulators: a pixel keeps its depth, id
+// and the row of the record that won it, and the epilogue evaluates the
+// winner's planes, reading them from that row (or the seed G-buffer where
+// the seed won). The values are those the plain version computes when the
+// record wins. Every pixel of every bin is written, empty bins included.
 //
 // The epilogue is a template over the four non-perspective output plans of
 // fused_output_channels (kLit: lighting from a normal channel; kTex: uv
 // passed on to the texture tail), so each plan compiles to straight-line
 // code with a fixed number of output planes.
-//
-// Bound: arithmetic, about 15 float operations per (pixel, record) pair
-// plus 3 per attribute channel where the record wins; records are read
-// once per block from device memory and broadcast from shared memory.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kSlabH = 16;                    // rows per block
-constexpr int kPix = kSlabH * sr::kTileW / kThreads;  // pixels per thread
-constexpr int kMaxA = 8;                      // attribute channels
-constexpr int kMaxW = 11 + 3 * kMaxA;         // record width
-constexpr int kChunk = 64;                    // records staged per pass
+// Block shape, swept on the card by software_renderer_tpu_torch/tools/
+// sweep_binned.py: rows per block (a band must be a multiple), columns of
+// a warp rectangle, pixels per thread, and the resident blocks per SM
+// asked of ptxas. Lane l of a warp owns column l % kRectW of its
+// rectangle and rows l / kRectW + kLaneRows * i, i < kPix.
+constexpr int kSlabH = 8;
+constexpr int kRectW = 16;
+constexpr int kPix = 2;
+constexpr int kMinBlocks = 2;
+constexpr int kLaneRows = 32 / kRectW;       // rows of lanes in a rectangle
+constexpr int kRectH = kLaneRows * kPix;     // rows of a warp rectangle
+constexpr int kWarpsX = sr::kTileW / kRectW;
+constexpr int kWarps = kWarpsX * (kSlabH / kRectH);
+constexpr int kThreads = 32 * kWarps;
+constexpr int kCols = 11;  // record columns the walk reads
+// Records staged per pass, one a thread (at most 512: static shared
+// memory stays under 48 KB).
+constexpr int kChunk = kThreads < 512 ? kThreads : 512;
+static_assert(32 % kRectW == 0 && kSlabH % kRectH == 0 && kThreads <= 1024,
+              "block shape");
+static_assert(kSlabH <= 255, "slab rows fit a box byte");
+
+// A record's bbox clipped to the slab, slab-relative and inclusive, as
+// x0 | x1 << 8 | y0 << 16 | y1 << 24; kEmpty meets no warp rectangle.
+constexpr unsigned kEmpty = 0xffu | (0xffu << 16);
 
 // Output planes of each plan:
 //   kLit && kTex: lit rgb, spec, u, v    kLit && !kTex: final rgb
@@ -41,45 +84,79 @@ constexpr int kChunk = 64;                    // records staged per pass
 template <bool kLit, bool kTex>
 constexpr int kNOut = 3 + (kLit && kTex) + 2 * kTex;
 
-struct FusedArgs {
-  const float* rows;       // [n_pairs, wtot] records in bin order
-  int wtot;                // 11 + 3 * n_channels
-  const int* bin_start;    // [nbins + 1] CSR offsets
-  const float* params;     // [32] shading row
+struct WalkArgs {
+  const float* rows;     // [n_pairs, wtot] records in bin order
+  int wtot;              // 11 + 3 * n_channels (K2), >= 11 (K5)
+  const int* bin_start;  // [nbins + 1] CSR offsets
+  const int4* bbox;      // [n_tri] x0, y0, x1, y1 (inclusive, absolute rows)
+  int n_tri;
   int width, height, y_start, tile_h, bands, gw;
-  int n_channels;
+  // K2 only.
+  const float* params;   // [32] shading row
   int rgb_off, nrm_off, uv_off;  // channel offsets, -1 where absent
-  const float* z_seed;     // seeded only: [H, W]
-  const int* id_seed;      // seeded only: [H, W]
-  const float* gb_seed;    // seeded only: [n_channels, H, W]
-  float* z_out;            // [H, W]
-  int* id_out;             // [H, W]
-  float* out;              // [kNOut, H, W]
+  const float* z_seed;   // seeded only: [H, W]
+  const int* id_seed;    // seeded only: [H, W]
+  const float* gb_seed;  // seeded only: [n_channels, H, W]
+  float* z_out;          // [H, W]
+  int* id_out;           // [H, W]
+  float* out;            // K2: [kNOut, H, W]
 };
 
-// acc[k] for a run-time k by compare-and-select, so that the accumulators
-// stay in registers (a run-time index would move them to local memory).
-__device__ __forceinline__ float pick(const float (&acc)[kMaxA], int k) {
-  float v = 0.0f;
-#pragma unroll
-  for (int a = 0; a < kMaxA; ++a) v = (a == k) ? acc[a] : v;
-  return v;
+// The slab-relative box of record id `tri` in the slab whose top-left
+// pixel is (sx0, global row gy0). Ids outside the table get the whole slab
+// (no cull).
+__device__ __forceinline__ unsigned slab_box(int tri, const WalkArgs& g,
+                                             int sx0, int gy0) {
+  if (tri < 0) return kEmpty;  // poison row: covers nothing
+  int x0 = 0, x1 = sr::kTileW - 1, y0 = 0, y1 = kSlabH - 1;
+  if (tri < g.n_tri) {
+    const int4 bb = __ldg(g.bbox + tri);
+    x0 = max(bb.x - sx0, 0);
+    x1 = min(bb.z - sx0, sr::kTileW - 1);
+    y0 = max(bb.y - gy0, 0);
+    y1 = min(bb.w - gy0, kSlabH - 1);
+    if (x0 > x1 || y0 > y1) return kEmpty;
+  }
+  return (unsigned)x0 | (unsigned)x1 << 8 | (unsigned)y0 << 16 |
+         (unsigned)y1 << 24;
+}
+
+// Whether a box meets the warp rectangle at slab columns wx .. wx +
+// kRectW - 1, rows wy .. wy + kRectH - 1.
+__device__ __forceinline__ bool meets(unsigned box, int wx, int wy) {
+  const int x0 = box & 0xff, x1 = (box >> 8) & 0xff, y0 = (box >> 16) & 0xff,
+            y1 = box >> 24;
+  return x0 <= wx + kRectW - 1 && x1 >= wx && y0 <= wy + kRectH - 1 &&
+         y1 >= wy;
+}
+
+// Channel a of a pixel: the winning row's plane at the pixel centre, else
+// the seed G-buffer's value (seeded), else 0.
+template <bool kSeeded>
+__device__ __forceinline__ float chan(int a, int row, size_t p, size_t npix,
+                                      float xs, float ys, const WalkArgs& g) {
+  if (row >= 0) {
+    const float* r = g.rows + (size_t)row * g.wtot + kCols + 3 * a;
+    return __ldg(r) * xs + __ldg(r + 1) * ys + __ldg(r + 2);
+  }
+  return kSeeded ? g.gb_seed[a * npix + p] : 0.0f;
 }
 
 // fused_epilogue for one pixel; writes kNOut<kLit, kTex> planes to outs.
-template <bool kLit, bool kTex>
-__device__ __forceinline__ void epilogue(const float (&acc)[kMaxA],
-                                         bool covered,
+template <bool kSeeded, bool kLit, bool kTex>
+__device__ __forceinline__ void epilogue(int row, size_t p, size_t npix,
+                                         float xs, float ys, bool covered,
                                          const float* __restrict__ prm,
-                                         const FusedArgs& g, float* outs) {
+                                         const WalkArgs& g, float* outs) {
+  auto ch = [&](int a) { return chan<kSeeded>(a, row, p, npix, xs, ys, g); };
   float base[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c)
-    base[c] = g.rgb_off >= 0 ? pick(acc, g.rgb_off + c) : prm[16 + c] * 1.0f;
+    base[c] = g.rgb_off >= 0 ? ch(g.rgb_off + c) : prm[16 + c] * 1.0f;
   int n = 0;
   if constexpr (kLit) {
-    const float n0 = pick(acc, g.nrm_off), n1 = pick(acc, g.nrm_off + 1),
-                n2 = pick(acc, g.nrm_off + 2);
+    const float n0 = ch(g.nrm_off), n1 = ch(g.nrm_off + 1),
+                n2 = ch(g.nrm_off + 2);
     float inv = 1.0f / sqrtf(sr::tmax(n0 * n0 + n1 * n1 + n2 * n2, 1e-12f));
     float nx = n0 * inv, ny = n1 * inv, nz = n2 * inv;
     float ndotl = sr::tmax(nx * prm[0] + ny * prm[1] + nz * prm[2], 0.0f);
@@ -96,132 +173,193 @@ __device__ __forceinline__ void epilogue(const float (&acc)[kMaxA],
     for (int c = 0; c < 3; ++c) outs[n++] = base[c];
   }
   if constexpr (kTex) {
-    outs[n++] = pick(acc, g.uv_off);
-    outs[n++] = pick(acc, g.uv_off + 1);
+    outs[n++] = ch(g.uv_off);
+    outs[n++] = ch(g.uv_off + 1);
   }
 #pragma unroll
   for (int k = 0; k < kNOut<kLit, kTex>; ++k)
     outs[k] = covered ? outs[k] : 0.0f;
 }
 
-template <bool kSeeded, bool kLit, bool kTex>
-__global__ void __launch_bounds__(kThreads) fused_kernel(const FusedArgs g) {
-  __shared__ float srec[kChunk * kMaxW];
+// kShade: K2 (winner rows and the epilogue); else K5 (depth and id only).
+template <bool kShade, bool kSeeded, bool kLit, bool kTex>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    walk_kernel(const WalkArgs g) {
+  __shared__ float srec[kCols][kChunk];
+  __shared__ unsigned sbox[kChunk];
   __shared__ float prm[32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.x;
   const int band_h = g.tile_h / g.bands;
   const int tile = b / g.bands, band = b % g.bands;
-  const int x = (tile % g.gw) * sr::kTileW + (threadIdx.x % sr::kTileW);
-  const int y_first = (tile / g.gw) * g.tile_h + band * band_h +
-                      blockIdx.y * kSlabH + threadIdx.x / sr::kTileW;
-  const int width = g.width, height = g.height, wtot = g.wtot;
+  // The slab's top-left pixel (frame row sy0, global row sy0 + y_start)
+  // and this warp's rectangle in the slab.
+  const int sx0 = (tile % g.gw) * sr::kTileW;
+  const int sy0 = (tile / g.gw) * g.tile_h + band * band_h +
+                  blockIdx.y * kSlabH;
+  const int wx = (warp % kWarpsX) * kRectW, wy = (warp / kWarpsX) * kRectH;
+  const int x = sx0 + wx + lane % kRectW;
+  const int y_first = sy0 + wy + lane / kRectW;
+  const int width = g.width, height = g.height;
   const size_t npix = (size_t)width * height;
   const float xs = (float)x + 0.5f;
-  const int A = g.n_channels;
 
-  if (threadIdx.x < 32) prm[threadIdx.x] = g.params[threadIdx.x];
+  if (kShade && tid < 32) prm[tid] = g.params[tid];
 
-  float ys[kPix], z[kPix], acc[kPix][kMaxA];
-  int id[kPix];
+  float ys[kPix], z[kPix];
+  int id[kPix], win[kPix];
 #pragma unroll
   for (int i = 0; i < kPix; ++i) {
-    const int y = y_first + 2 * i;
+    const int y = y_first + kLaneRows * i;
     ys[i] = (float)(y + g.y_start) + 0.5f;
     const bool in_frame = x < width && y < height;
     const size_t p = (size_t)y * width + x;
     z[i] = (kSeeded && in_frame) ? g.z_seed[p] : INFINITY;
     id[i] = (kSeeded && in_frame) ? g.id_seed[p] : -1;
-#pragma unroll
-    for (int a = 0; a < kMaxA; ++a)
-      acc[i][a] =
-          (kSeeded && in_frame && a < A) ? g.gb_seed[a * npix + p] : 0.0f;
+    win[i] = -1;
   }
-  __syncthreads();  // prm is read by every thread's epilogue
 
   const int start = g.bin_start[b], end = g.bin_start[b + 1];
   for (int base = start; base < end; base += kChunk) {
     const int cnt = min(kChunk, end - base);
-    __syncthreads();
-    for (int j = threadIdx.x; j < cnt * wtot; j += kThreads)
-      srec[j] = g.rows[(size_t)base * wtot + j];
-    __syncthreads();
-    for (int k = 0; k < cnt; ++k) {
-      const float* r = srec + k * wtot;
-      const float a0 = r[0], a1 = r[1], b0 = r[2], b1 = r[3], c0 = r[4],
-                  c1 = r[5], dabs = r[6], zx = r[7], zy = r[8], zc = r[9];
-      const int tri = (int)r[10];
+    __syncthreads();  // the previous chunk is no longer read
+    if (tid < kChunk) {
+      unsigned box = kEmpty;
+      if (tid < cnt) {
+        const float* r = g.rows + (size_t)(base + tid) * g.wtot;
 #pragma unroll
-      for (int i = 0; i < kPix; ++i) {
-        float e0 = a0 * xs + b0 * ys[i] + c0;
-        float e1 = a1 * xs + b1 * ys[i] + c1;
-        float e2 = dabs - e0 - e1;
-        bool inside = e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f;
-        float depth = zx * xs + zy * ys[i] + zc;
-        float cand = inside ? depth : INFINITY;
-        bool better = cand < z[i];
-        if constexpr (kSeeded)
-          better = better || (cand == z[i] && tri < id[i]);
-        if (better) {
-          z[i] = cand;
-          id[i] = tri;
+        for (int c = 0; c < kCols; ++c) srec[c][tid] = __ldg(r + c);
+        box = slab_box((int)__ldg(r + 10), g, sx0, sy0 + g.y_start);
+      }
+      sbox[tid] = box;
+    }
+    __syncthreads();
+    for (int k0 = 0; k0 < cnt; k0 += 32) {
+      const unsigned mine = sbox[k0 + lane];  // kEmpty past cnt
+      unsigned m = __ballot_sync(0xffffffffu, meets(mine, wx, wy));
+      while (m) {
+        const int j = __ffs(m) - 1;
+        m &= m - 1;
+        const unsigned bj = __shfl_sync(0xffffffffu, mine, j);
+        const int k = k0 + j;
+        const int rlo = (int)((bj >> 16) & 0xff) - wy;
+        const int rhi = (int)(bj >> 24) - wy;
+        const float a0 = srec[0][k], a1 = srec[1][k], b0 = srec[2][k],
+                    b1 = srec[3][k], c0 = srec[4][k], c1 = srec[5][k],
+                    dabs = srec[6][k], zx = srec[7][k], zy = srec[8][k],
+                    zc = srec[9][k];
+        const int tri = (int)srec[10][k];
 #pragma unroll
-          for (int a = 0; a < kMaxA; ++a)
-            if (a < A)
-              acc[i][a] = r[11 + 3 * a] * xs + r[12 + 3 * a] * ys[i] +
-                          r[13 + 3 * a];
+        for (int i = 0; i < kPix; ++i) {
+          // Skip the pixels whose row of lanes the bbox misses.
+          if (kLaneRows * (i + 1) - 1 < rlo || kLaneRows * i > rhi) continue;
+          float e0 = a0 * xs + b0 * ys[i] + c0;
+          float e1 = a1 * xs + b1 * ys[i] + c1;
+          float e2 = dabs - e0 - e1;
+          bool inside = e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f;
+          float depth = zx * xs + zy * ys[i] + zc;
+          float cand = inside ? depth : INFINITY;
+          bool better = cand < z[i];
+          if constexpr (kSeeded)
+            better = better || (inside && cand == z[i] && tri < id[i]);
+          if (better) {
+            z[i] = cand;
+            id[i] = tri;
+            if constexpr (kShade) win[i] = base + k;
+          }
         }
       }
     }
   }
+  if (kShade && start == end) __syncthreads();  // prm is read below
 
 #pragma unroll
   for (int i = 0; i < kPix; ++i) {
-    const int y = y_first + 2 * i;
+    const int y = y_first + kLaneRows * i;
     if (x >= width || y >= height) continue;
     const size_t p = (size_t)y * width + x;
     g.z_out[p] = z[i];
     g.id_out[p] = id[i];
-    float outs[kNOut<kLit, kTex>];
-    epilogue<kLit, kTex>(acc[i], id[i] >= 0, prm, g, outs);
+    if constexpr (kShade) {
+      float outs[kNOut<kLit, kTex>];
+      epilogue<kSeeded, kLit, kTex>(win[i], p, npix, xs, ys[i], id[i] >= 0,
+                                    prm, g, outs);
 #pragma unroll
-    for (int c = 0; c < kNOut<kLit, kTex>; ++c) g.out[c * npix + p] = outs[c];
+      for (int c = 0; c < kNOut<kLit, kTex>; ++c)
+        g.out[c * npix + p] = outs[c];
+    }
   }
 }
 
+template <bool kShade, bool kSeeded, bool kLit, bool kTex>
+int launch(int nbins, cudaStream_t s, const WalkArgs& g) {
+  const dim3 grid(nbins, (g.tile_h / g.bands) / kSlabH);
+  if (nbins > 0)
+    walk_kernel<kShade, kSeeded, kLit, kTex><<<grid, kThreads, 0, s>>>(g);
+  return (int)cudaGetLastError();
+}
+
 template <bool kSeeded>
-void launch(bool lit, bool tex, dim3 grid, cudaStream_t s,
-            const FusedArgs& g) {
-  if (lit && tex)
-    fused_kernel<kSeeded, true, true><<<grid, kThreads, 0, s>>>(g);
-  else if (lit)
-    fused_kernel<kSeeded, true, false><<<grid, kThreads, 0, s>>>(g);
-  else if (tex)
-    fused_kernel<kSeeded, false, true><<<grid, kThreads, 0, s>>>(g);
-  else
-    fused_kernel<kSeeded, false, false><<<grid, kThreads, 0, s>>>(g);
+int launch_fused(bool lit, bool tex, int nbins, cudaStream_t s,
+                 const WalkArgs& g) {
+  if (lit && tex) return launch<true, kSeeded, true, true>(nbins, s, g);
+  if (lit) return launch<true, kSeeded, true, false>(nbins, s, g);
+  if (tex) return launch<true, kSeeded, false, true>(nbins, s, g);
+  return launch<true, kSeeded, false, false>(nbins, s, g);
+}
+
+bool bad_grid(int tile_h, int bands, int n_tri) {
+  return bands <= 0 || tile_h % bands || (tile_h / bands) % kSlabH ||
+         n_tri < 0;
 }
 
 }  // namespace
 
 extern "C" int sr_fused(const float* rows, const int* bin_start, int nbins,
-                        const float* params, int wtot, int width, int height,
-                        int y_start, int tile_h, int bands, int gw,
-                        int n_channels, int rgb_off, int nrm_off, int uv_off,
-                        int lit, int tex, const float* z_seed,
-                        const int* id_seed, const float* gb_seed, float* z_out,
-                        int* id_out, float* out, void* stream) {
-  if (n_channels > kMaxA || wtot != 11 + 3 * n_channels ||
-      (tile_h / bands) % kSlabH)
+                        const float* params, int wtot, const int* bbox,
+                        int n_tri, int width, int height, int y_start,
+                        int tile_h, int bands, int gw, int n_channels,
+                        int rgb_off, int nrm_off, int uv_off, int lit, int tex,
+                        const float* z_seed, const int* id_seed,
+                        const float* gb_seed, float* z_out, int* id_out,
+                        float* out, void* stream) {
+  const auto fits = [&](int off, int size) {
+    return off < 0 || off + size <= n_channels;
+  };
+  if (wtot != kCols + 3 * n_channels || bad_grid(tile_h, bands, n_tri) ||
+      !fits(rgb_off, 3) || !fits(nrm_off, 3) || !fits(uv_off, 2) ||
+      (lit && nrm_off < 0) || (tex && uv_off < 0))
     return (int)cudaErrorInvalidValue;
-  const FusedArgs g{rows,     wtot,    bin_start, params,  width,
-                    height,   y_start, tile_h,    bands,   gw,
-                    n_channels, rgb_off, nrm_off, uv_off,  z_seed,
-                    id_seed,  gb_seed, z_out,     id_out,  out};
-  const dim3 grid(nbins, (tile_h / bands) / kSlabH);
+  const WalkArgs g{rows,    wtot,    bin_start, (const int4*)bbox,
+                   n_tri,   width,   height,    y_start,
+                   tile_h,  bands,   gw,        params,
+                   rgb_off, nrm_off, uv_off,    z_seed,
+                   id_seed, gb_seed, z_out,     id_out,
+                   out};
   const cudaStream_t s = (cudaStream_t)stream;
-  if (z_seed)
-    launch<true>(lit, tex, grid, s, g);
-  else
-    launch<false>(lit, tex, grid, s, g);
-  return (int)cudaGetLastError();
+  return z_seed ? launch_fused<true>(lit, tex, nbins, s, g)
+                : launch_fused<false>(lit, tex, nbins, s, g);
+}
+
+extern "C" int sr_binned_vis(const float* rows, int wtot, const int* bin_start,
+                             int nbins, const int* bbox, int n_tri, int width,
+                             int height, int y_start, int tile_h, int bands,
+                             int gw, float* z_out, int* id_out, void* stream) {
+  if (wtot < kCols || bad_grid(tile_h, bands, n_tri))
+    return (int)cudaErrorInvalidValue;
+  WalkArgs g{};
+  g.rows = rows;
+  g.wtot = wtot;
+  g.bin_start = bin_start;
+  g.bbox = (const int4*)bbox;
+  g.n_tri = n_tri;
+  g.width = width;
+  g.height = height;
+  g.y_start = y_start;
+  g.tile_h = tile_h;
+  g.bands = bands;
+  g.gw = gw;
+  g.z_out = z_out;
+  g.id_out = id_out;
+  return launch<false, false, false, false>(nbins, (cudaStream_t)stream, g);
 }

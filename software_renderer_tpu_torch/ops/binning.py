@@ -24,10 +24,10 @@ triangles on top with the lex (depth, id) rule, and then resolves the
 winners' attribute planes into a G-buffer when it is given attributes.
 Both give the same pixels: the lex rule does not depend on the order.
 
-Kernels (csrc/), each replacing one of the JAX package's:
-``fused.cu`` ``_fused_kernel`` (software_renderer_tpu/ops/binning.py:703),
-``binned_vis.cu`` ``_binned_vis_kernel`` (:607), ``resolve.cu``
-``_resolve_kernel`` (:663) and ``resolve_merge.cu``
+Kernels (csrc/), each replacing one of the JAX package's: ``fused.cu``
+``_fused_kernel`` (software_renderer_tpu/ops/binning.py:703) and, as the
+zero-channel instance of the same walk, ``_binned_vis_kernel`` (:607);
+``resolve.cu`` ``_resolve_kernel`` (:663) and ``resolve_merge.cu``
 ``_resolve_merge_kernel`` (:683). What bounds each and what its design
 does about it is noted at the wrapper.
 """
@@ -57,8 +57,9 @@ REC_BASE = 11
 # from FUSED_BANDS_MIN_T triangles up (the JAX package's swept defaults).
 FUSED_BANDS = 4
 FUSED_BANDS_MIN_T = 2048
-# Rows the CUDA fused kernel shades per block; a band must be a multiple.
-SLAB_H = 16
+# Rows the CUDA bin walk (K2, K5) covers per block; a band must be a
+# multiple.
+SLAB_H = 8
 
 
 @dataclasses.dataclass
@@ -211,6 +212,11 @@ def resolve_merge_kernel(rows, tid, gb_in, *, width: int, height: int,
 # Fused raster + shade (K2)
 # ---------------------------------------------------------------------------
 
+def _grid(width: int, height: int, tile_h: int, tile_w: int, bands: int):
+    gw = -(-width // tile_w)
+    return -(-height // tile_h) * gw * bands, gw
+
+
 def _bin_slabs(frame, gh: int, gw: int, bands: int, tile_h: int,
                tile_w: int):
     """[..., gh*tile_h, gw*tile_w] -> [..., nbins, band_h, tile_w] in bin
@@ -323,12 +329,13 @@ def _walk_bins_plain(rows, bin_start, *, width: int, height: int,
     return unbin(z), unbin(ids), unbin(acc.transpose(0, 1))
 
 
-def fused_plain(rows, bin_start, params, *, width: int, height: int,
+def fused_plain(rows, bin_start, params, *, bbox, width: int, height: int,
                 chans, has_light: bool, has_texture: bool, bands: int,
                 y_start: int = 0, tile_h: int = TILE_H,
                 tile_w: int = TILE_W, seeds=None):
     """Plain version of the fused kernel: :func:`_walk_bins_plain`, then
-    :func:`ops.shading.fused_epilogue` over the whole frame."""
+    :func:`ops.shading.fused_epilogue` over the whole frame. ``bbox`` is
+    the kernel's cull and changes no pixel; it is not read here."""
     z, ids, acc = _walk_bins_plain(
         rows, bin_start, width=width, height=height,
         n_channels=sum(s for _, s in chans), bands=bands, y_start=y_start,
@@ -338,7 +345,23 @@ def fused_plain(rows, bin_start, params, *, width: int, height: int,
     return z, ids, torch.stack(outs)
 
 
-def fused_kernel(rows, bin_start, params, *, width: int, height: int,
+def _require_walk(rows, bin_start, bbox, *, width: int, height: int,
+                  tile_h: int, tile_w: int, bands: int):
+    """The checks of the CUDA bin walk's (K2, K5) common inputs."""
+    if tile_w != TILE_W or tile_h % bands or (tile_h // bands) % SLAB_H:
+        raise ValueError(f"the CUDA bin walk takes {TILE_W}-wide tiles and "
+                         f"bands that are multiples of {SLAB_H} rows")
+    nbins, _ = _grid(width, height, tile_h, tile_w, bands)
+    dev = rows.device
+    _cuda.require(rows, torch.float32, "rows", ndim=2)
+    _cuda.require(bin_start, torch.int32, "bin_start", device=dev,
+                  shape=(nbins + 1,))
+    _cuda.require(bbox, torch.int32, "bbox", device=dev, ndim=2, align=16)
+    if bbox.shape[1] != 4:
+        raise ValueError(f"bbox must be [T, 4], got {tuple(bbox.shape)}")
+
+
+def fused_kernel(rows, bin_start, params, *, bbox, width: int, height: int,
                  chans, has_light: bool, has_texture: bool, bands: int,
                  y_start: int = 0, tile_h: int = TILE_H,
                  tile_w: int = TILE_W, seeds=None):
@@ -346,43 +369,43 @@ def fused_kernel(rows, bin_start, params, *, width: int, height: int,
 
     rows: [n_pairs, 11 + 3A] float32 stream rows in bin order; bin_start:
     [nbins + 1] int32 CSR offsets (:class:`BinInfo`); params: the
-    [PARAMS_WIDTH] shading row; seeds: None, or (z [H, W] float32, id
-    [H, W] int32, gb [A, H, W] float32) to start from with the lex
+    [PARAMS_WIDTH] shading row; bbox: [T, 4] int32, the planar setup's
+    inclusive pixel bbox (x0, y0, x1, y1) per triangle id
+    (:func:`ops.frontend.bbox_table`); seeds: None, or (z [H, W] float32,
+    id [H, W] int32, gb [A, H, W] float32) to start from with the lex
     (depth, id) rule. Returns (z [H, W], id [H, W], out [n_out, H, W]).
     CPU tensors run :func:`fused_plain`; CUDA tensors launch
     csrc/fused.cu.
 
-    What bounds it on the card: arithmetic, about 15 float operations per
-    (pixel, record) pair plus 3 per channel where the record wins. The
-    design gives each (tile, band) bin's 16-row slab one block of 256
-    threads with 8 pixels each, keeps depth, id and accumulators in
-    registers, stages the bin's records in shared memory and walks them
-    in list order, so ties need no atomics; the epilogue runs in the same
-    block and every pixel is written, empty bins included.
+    The records must be coverage-safe (as :func:`build_bins` bins them):
+    the kernel tests a record only on the pixels inside its bbox.
+
+    What bounds it on the card: the (pixel, record) tests, about 18 float
+    operations each, the output planes' bytes, and the few long bins.
+    Testing every record on every pixel of its bin's 16 x 128 band (the
+    previous design) did ~50x the tests config 4 needs; here each warp
+    owns a 16 x 4 rectangle of an 8-row slab block, culls the staged
+    records by their bbox with a ballot and tests the survivors, in list
+    order (no atomics), only on the rows their bbox spans. The walk keeps
+    depth, id and the winning row per pixel; the epilogue evaluates the
+    winner's planes (no accumulators in registers) and writes every
+    pixel, empty bins included.
     """
     if rows.device.type == "cpu":
-        return fused_plain(rows, bin_start, params, width=width,
+        return fused_plain(rows, bin_start, params, bbox=bbox, width=width,
                            height=height, chans=chans, has_light=has_light,
                            has_texture=has_texture, bands=bands,
                            y_start=y_start, tile_h=tile_h, tile_w=tile_w,
                            seeds=seeds)
-    if tile_w != TILE_W or tile_h % bands or (tile_h // bands) % SLAB_H:
-        raise ValueError(f"the CUDA fused kernel takes {TILE_W}-wide tiles "
-                         f"and bands that are multiples of {SLAB_H} rows")
     dev = rows.device
     a = sum(s for _, s in chans)
-    gh = -(-height // tile_h)
-    gw = -(-width // tile_w)
-    nbins = gh * gw * bands
-    _cuda.require(rows, torch.float32, "rows", ndim=2)
+    _require_walk(rows, bin_start, bbox, width=width, height=height,
+                  tile_h=tile_h, tile_w=tile_w, bands=bands)
     if rows.shape[1] != REC_BASE + 3 * a:
         raise ValueError(f"rows must be [N, {REC_BASE + 3 * a}]")
-    _cuda.require(bin_start, torch.int32, "bin_start", device=dev,
-                  shape=(nbins + 1,))
     _cuda.require(params, torch.float32, "params", device=dev, ndim=1)
     if params.shape[0] < 32:
         raise ValueError("params must hold at least 32 values")
-    seed_ptrs = (None, None, None)
     if seeds is not None:
         z_s, id_s, gb_s = seeds
         _cuda.require(z_s, torch.float32, "z seed", device=dev,
@@ -391,7 +414,25 @@ def fused_kernel(rows, bin_start, params, *, width: int, height: int,
                       shape=(height, width))
         _cuda.require(gb_s, torch.float32, "gb seed", device=dev,
                       shape=(a, height, width))
-        seed_ptrs = (z_s.data_ptr(), id_s.data_ptr(), gb_s.data_ptr())
+    lib = _cuda.lib()
+    _cuda.launches["fused"] += 1
+    if seeds is not None:
+        _cuda.launches["fused_seeded"] += 1
+    return card_fused(lib, rows, bin_start, params, bbox, width=width,
+                      height=height, chans=chans, has_light=has_light,
+                      has_texture=has_texture, bands=bands, y_start=y_start,
+                      tile_h=tile_h, seeds=seeds)
+
+
+def card_fused(lib, rows, bin_start, params, bbox, *, width: int,
+               height: int, chans, has_light: bool, has_texture: bool,
+               bands: int, y_start: int, tile_h: int, seeds=None):
+    """Launch ``lib``'s fused kernel on checked CUDA inputs (those of
+    :func:`fused_kernel`); returns (z, id, out)."""
+    dev = rows.device
+    nbins, gw = _grid(width, height, tile_h, TILE_W, bands)
+    seed_ptrs = (None, None, None) if seeds is None else tuple(
+        t.data_ptr() for t in seeds)
     out_chans = fused_output_channels(
         "textured" if has_texture else "vertex", chans, has_light,
         has_texture)
@@ -402,14 +443,11 @@ def fused_kernel(rows, bin_start, params, *, width: int, height: int,
     ids = torch.empty((height, width), dtype=torch.int32, device=dev)
     out = torch.empty((sum(s for _, s in out_chans), height, width),
                       dtype=torch.float32, device=dev)
-    lib = _cuda.lib()
-    _cuda.launches["fused"] += 1
-    if seeds is not None:
-        _cuda.launches["fused_seeded"] += 1
     _cuda.check(lib.sr_fused(
         rows.data_ptr(), bin_start.data_ptr(), nbins,
-        params.data_ptr(), rows.shape[1], width, height, y_start, tile_h,
-        bands, gw, a, off("rgb"), off("normal"), off("uv"),
+        params.data_ptr(), rows.shape[1], bbox.data_ptr(), bbox.shape[0],
+        width, height, y_start, tile_h, bands, gw,
+        sum(s for _, s in chans), off("rgb"), off("normal"), off("uv"),
         int(has_light and "normal" in names), int(has_texture), *seed_ptrs,
         z.data_ptr(), ids.data_ptr(), out.data_ptr(), _cuda.stream_of(rows)))
     return z, ids, out
@@ -444,6 +482,7 @@ def fused_pipeline(ps: fe.PlanarSetup, attrs, params, *, width: int,
     table, a, poison = fe.stream_table_planar(
         ps, fe.attribute_plane_cols(ps, attrs))
     rows = gather_stream(table, info.ids, poison).contiguous()
+    bbox = fe.bbox_table(ps)
     seeds = None
     if info.n_overflow:
         dev = table.device
@@ -459,7 +498,7 @@ def fused_pipeline(ps: fe.PlanarSetup, attrs, params, *, width: int,
             torch.zeros((a, height, width), device=dev), width=width,
             height=height, y_start=y_start)
         seeds = (z_ov, id_ov, gb_ov)
-    return fused_kernel(rows, info.bin_start, params, width=width,
+    return fused_kernel(rows, info.bin_start, params, bbox=bbox, width=width,
                         height=height, chans=chans, has_light=has_light,
                         has_texture=has_texture, bands=bands,
                         y_start=y_start, tile_h=tile_h, tile_w=tile_w,
@@ -470,23 +509,19 @@ def fused_pipeline(ps: fe.PlanarSetup, attrs, params, *, width: int,
 # Binned visibility (K5) and G-buffer resolve (K6)
 # ---------------------------------------------------------------------------
 
-def _grid(width: int, height: int, tile_h: int, tile_w: int, bands: int):
-    gw = -(-width // tile_w)
-    return -(-height // tile_h) * gw * bands, gw
-
-
-def binned_vis_plain(rows, bin_start, *, width: int, height: int,
+def binned_vis_plain(rows, bin_start, *, bbox, width: int, height: int,
                      y_start: int = 0, tile_h: int = TILE_H,
                      tile_w: int = TILE_W, bands: int = 1):
     """Plain version of the binned visibility kernel: the bin walk of
-    :func:`_walk_bins_plain` with no seeds and no channels."""
+    :func:`_walk_bins_plain` with no seeds and no channels (``bbox``, the
+    kernel's cull, is not read)."""
     z, ids, _ = _walk_bins_plain(rows, bin_start, width=width, height=height,
                                  n_channels=0, bands=bands, y_start=y_start,
                                  tile_h=tile_h, tile_w=tile_w)
     return z, ids
 
 
-def binned_vis_kernel(rows, bin_start, *, width: int, height: int,
+def binned_vis_kernel(rows, bin_start, *, bbox, width: int, height: int,
                       y_start: int = 0, tile_h: int = TILE_H,
                       tile_w: int = TILE_W, bands: int = 1):
     """Visibility over the CSR bin lists: per pixel, the strict ``<``
@@ -495,38 +530,46 @@ def binned_vis_kernel(rows, bin_start, *, width: int, height: int,
     is written, empty bins included.
 
     rows: [n_pairs, >= 11] float32 stream rows in bin order (only the
-    first 11 columns are read); bin_start: [nbins + 1] int32. Returns
+    first 11 columns are read); bin_start: [nbins + 1] int32; bbox: [T, 4]
+    int32 per triangle id, as :func:`fused_kernel` takes it. Returns
     (z [H, W] float32, id [H, W] int32). CPU tensors run
-    :func:`binned_vis_plain`; CUDA tensors launch csrc/binned_vis.cu.
+    :func:`binned_vis_plain`; CUDA tensors launch the zero-channel
+    instance of csrc/fused.cu's walk.
 
-    What bounds it on the card: arithmetic, about 18 float operations per
-    (pixel, record) pair. The design is K2's without the accumulators and
-    the epilogue: one block of 256 threads per 16-row slab of a bin, 8
-    pixels per thread with depth and id in registers, the bin's records
-    staged in shared memory and walked in list order.
+    What bounds it on the card: the (pixel, record) tests, about 18 float
+    operations each, and the long bins. ``binned_pipeline`` bins whole
+    64 x 128 tiles, so a walk of every record on every pixel of the tile
+    (the previous design) tested each record on 8,192 pixels; here, as in
+    K2, each warp's 16 x 4 rectangle takes only the records whose bbox
+    meets it, in list order, and tests them on the rows the bbox spans.
     """
     if rows.device.type == "cpu":
-        return binned_vis_plain(rows, bin_start, width=width, height=height,
-                                y_start=y_start, tile_h=tile_h,
-                                tile_w=tile_w, bands=bands)
-    if tile_w != TILE_W or tile_h % bands or (tile_h // bands) % SLAB_H:
-        raise ValueError(f"the CUDA binned kernels take {TILE_W}-wide tiles "
-                         f"and bands that are multiples of {SLAB_H} rows")
-    dev = rows.device
-    nbins, gw = _grid(width, height, tile_h, tile_w, bands)
-    _cuda.require(rows, torch.float32, "rows", ndim=2)
+        return binned_vis_plain(rows, bin_start, bbox=bbox, width=width,
+                                height=height, y_start=y_start,
+                                tile_h=tile_h, tile_w=tile_w, bands=bands)
+    _require_walk(rows, bin_start, bbox, width=width, height=height,
+                  tile_h=tile_h, tile_w=tile_w, bands=bands)
     if rows.shape[1] < REC_BASE:
         raise ValueError(f"rows must have at least {REC_BASE} columns")
-    _cuda.require(bin_start, torch.int32, "bin_start", device=dev,
-                  shape=(nbins + 1,))
-    z = torch.empty((height, width), dtype=torch.float32, device=dev)
-    ids = torch.empty((height, width), dtype=torch.int32, device=dev)
     lib = _cuda.lib()
     _cuda.launches["binned_vis"] += 1
+    return card_binned_vis(lib, rows, bin_start, bbox, width=width,
+                           height=height, y_start=y_start, tile_h=tile_h,
+                           bands=bands)
+
+
+def card_binned_vis(lib, rows, bin_start, bbox, *, width: int, height: int,
+                    y_start: int, tile_h: int, bands: int):
+    """Launch ``lib``'s binned visibility kernel on checked CUDA inputs
+    (those of :func:`binned_vis_kernel`); returns (z, id)."""
+    dev = rows.device
+    nbins, gw = _grid(width, height, tile_h, TILE_W, bands)
+    z = torch.empty((height, width), dtype=torch.float32, device=dev)
+    ids = torch.empty((height, width), dtype=torch.int32, device=dev)
     _cuda.check(lib.sr_binned_vis(
-        rows.data_ptr(), rows.shape[1], bin_start.data_ptr(), nbins, width,
-        height, y_start, tile_h, bands, gw, z.data_ptr(), ids.data_ptr(),
-        _cuda.stream_of(rows)))
+        rows.data_ptr(), rows.shape[1], bin_start.data_ptr(), nbins,
+        bbox.data_ptr(), bbox.shape[0], width, height, y_start, tile_h, bands,
+        gw, z.data_ptr(), ids.data_ptr(), _cuda.stream_of(rows)))
     return z, ids
 
 
@@ -627,7 +670,8 @@ def binned_pipeline(ps: fe.PlanarSetup, attrs=None, *, width: int,
         ps, fe.attribute_plane_cols(ps, attrs or []))
     rows = gather_stream(table, info.ids, poison).contiguous()
     geo = dict(width=width, height=height, y_start=y_start)
-    depth, tri_id = binned_vis_kernel(rows, info.bin_start, tile_h=tile_h,
+    depth, tri_id = binned_vis_kernel(rows, info.bin_start,
+                                      bbox=fe.bbox_table(ps), tile_h=tile_h,
                                       tile_w=tile_w, **geo)
     if info.n_overflow:
         dev = table.device

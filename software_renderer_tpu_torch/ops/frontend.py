@@ -240,6 +240,12 @@ def stream_table_planar(ps: PlanarSetup, plane_cols):
     return table, a3 // 3, poison
 
 
+def bbox_table(ps: PlanarSetup) -> torch.Tensor:
+    """[T, 4] int32 (x0, y0, x1, y1): each triangle's inclusive pixel
+    bbox, indexed by triangle id (the bin walk's cull, ops/binning.py)."""
+    return torch.stack([ps.bx0, ps.by0, ps.bx1, ps.by1], dim=1)
+
+
 def pack_records_planar(ps: PlanarSetup, chunk: int):
     """[T_pad, 16] raster records of the planar front-end (bbox in
     columns 10-13, id in column 14): ops/rasterize_kernel.py

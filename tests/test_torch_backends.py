@@ -248,14 +248,17 @@ def test_new_kernel_wrappers_run_plain_on_cpu():
     rec = tfe.pack_records_planar(ps, 128)
     _cuda.reset_launches()
     zk, ik = visibility_kernel(rec, width=w, height=h)
-    zb, ib = tbin.binned_vis_kernel(rows, info.bin_start, width=w, height=h)
+    bbox = tfe.bbox_table(ps)
+    zb, ib = tbin.binned_vis_kernel(rows, info.bin_start, bbox=bbox, width=w,
+                                    height=h)
     gk = tbin.resolve_kernel(rows, info.bin_start, ib, n_channels=a,
                              width=w, height=h)
     assert all(v == 0 for v in _cuda.launches.values()), _cuda.launches
     zp, ip = visibility_plain(rec, width=w, height=h)
     assert torch.equal(zk, zp) and torch.equal(ik, ip)
     assert bool((ik >= 0).any())
-    zbp, ibp = tbin.binned_vis_plain(rows, info.bin_start, width=w, height=h)
+    zbp, ibp = tbin.binned_vis_plain(rows, info.bin_start, bbox=bbox,
+                                     width=w, height=h)
     assert torch.equal(zb, zbp) and torch.equal(ib, ibp)
     assert torch.equal(gk, tbin.resolve_plain(
         rows, info.bin_start, ib, n_channels=a, width=w, height=h))

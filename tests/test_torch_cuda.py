@@ -29,6 +29,7 @@ from software_renderer_tpu_torch.ops.frontend_kernel import fe_kernel, fe_plain
 from software_renderer_tpu_torch.ops.rasterize_kernel import (
     _poison_row, visibility_kernel, visibility_merge_kernel,
     visibility_merge_plain, visibility_plain)
+from software_renderer_tpu_torch.ops.shading import Light, shading_params
 from software_renderer_tpu_torch.parallel.batch import render_batch
 from software_renderer_tpu_torch.parallel.sharding import texture_train_step
 from software_renderer_tpu_torch.render import triangle_inputs
@@ -91,7 +92,7 @@ def test_fused_and_overflow_kernels_match_plain(bands):
     torch.cuda.synchronize()
     assert float((gk - gp).abs().max()) <= PLANE_TOL
     kw = dict(width=w, height=h, chans=chans, has_light=True,
-              has_texture=True, bands=bands)
+              has_texture=True, bands=bands, bbox=fe.bbox_table(ps))
     for seeds in (None, (zk, ik, gk)):
         zk2, ik2, ok2 = tb.fused_kernel(rows, info.bin_start, prm,
                                         seeds=seeds, **kw)
@@ -116,8 +117,9 @@ def test_backend_kernels_match_plain(bands):
     table, a, poison = fe.stream_table_planar(
         ps, fe.attribute_plane_cols(ps, attrs))
     rows = tb.gather_stream(table, info.ids, poison).contiguous()
-    zk, ik = tb.binned_vis_kernel(rows, info.bin_start, **geo)
-    zp, ip = tb.binned_vis_plain(rows, info.bin_start, **geo)
+    bbox = fe.bbox_table(ps)
+    zk, ik = tb.binned_vis_kernel(rows, info.bin_start, bbox=bbox, **geo)
+    zp, ip = tb.binned_vis_plain(rows, info.bin_start, bbox=bbox, **geo)
     gk = tb.resolve_kernel(rows, info.bin_start, ik, n_channels=a, **geo)
     gp = tb.resolve_plain(rows, info.bin_start, ik, n_channels=a, **geo)
     rec = fe.pack_records_planar(ps, 128)
@@ -135,6 +137,145 @@ def test_backend_kernels_match_plain(bands):
         assert _cuda.launches[k] == 1, _cuda.launches
     assert _equal(i, iv) and _equal(d, zv)
     assert g.shape == (h, w, a) and bool(torch.isfinite(g).all())
+
+
+def _px_corners(px, py, z):
+    """[n, 3, 3] float32 NDC corners (transform eye(4)) of triangles with
+    pixel-coordinate corners (px, py) [n, 3] on the _WALK_W x _WALK_H
+    frame, at depth z [n, 3]."""
+    return np.stack([px / _WALK_W * 2.0 - 1.0, 1.0 - py / _WALK_H * 2.0, z],
+                    -1).astype(np.float32)
+
+
+# The bin-walk cases' frame: 120 = 64 + 56 rows and 200 = 128 + 72
+# columns, so the last tile row and column are ragged.
+_WALK_W, _WALK_H = 200, 120
+_WALK_CASES = ("long", "one_warp", "edges", "y_start", "ties", "none")
+
+
+def _walk_case(case, dev="cuda"):
+    """(planar setup, attribute columns, height, y_start) of one bin-walk
+    case: the setup is for the whole _WALK_W x _WALK_H frame, the walk
+    covers its rows [y_start, y_start + height)."""
+    rng = np.random.default_rng(30 + _WALK_CASES.index(case))
+
+    def tiny(n, x0, x1, y0, y1):  # corners within 3 pixels of a point
+        return (rng.integers(x0, x1, (n, 1)) + rng.integers(0, 4, (n, 3)),
+                rng.integers(y0, y1, (n, 1)) + rng.integers(0, 4, (n, 3)))
+
+    h, y0 = _WALK_H, 0
+    if case == "long":            # > 2 staged chunks (256) in one bin
+        px, py = tiny(700, 0, 125, 0, 13)
+    elif case == "one_warp":      # every record in one warp's 16 x 4
+        # rectangle: columns 32-47, rows 8-11
+        px, py = tiny(900, 32, 45, 8, 9)
+    elif case == "edges":
+        # Boxes that touch one row or column of a warp rectangle (whose
+        # edges are at multiples of 16 columns and 4 rows), boxes at the
+        # ragged frame edge, and triangles past every frame edge.
+        xe = np.array([0, 15, 16, 31, 32, 63, 64, 127, 128, 159, 160, 191,
+                       198])
+        ye = np.array([0, 3, 4, 7, 8, 15, 16, 63, 64, 111, 112, 115, 118])
+        px = rng.choice(xe, (300, 1)) + rng.integers(0, 2, (300, 3))
+        py = rng.choice(ye, (300, 1)) + rng.integers(0, 2, (300, 3))
+        px = np.concatenate([px, rng.uniform(-150, 350, (40, 3))])
+        py = np.concatenate([py, rng.uniform(-100, 220, (40, 3))])
+    elif case == "y_start":       # rows [37, 101) of the frame
+        px, py = tiny(500, -2, 200, -2, 120)
+        h, y0 = 64, 37
+    elif case == "ties":          # one depth everywhere: every overlap is
+        # an equal-depth tie, decided by id (lower ids drawn first)
+        px, py = tiny(300, 0, 197, 0, 117)
+        px = px + rng.integers(0, 12, px.shape)
+    else:                         # nothing on screen: no pairs at all
+        px, py = tiny(20, 400, 500, 0, 100)
+    z = (np.full(px.shape, 0.5) if case == "ties"
+         else rng.uniform(0.1, 0.9, px.shape))
+    if case == "edges":           # the large triangles behind the small
+        z[-40:] = 0.95
+    corners = torch.from_numpy(_px_corners(px, py, z)).to(dev)
+    ps = fe.planar_front(fe.corner_cols(corners), torch.eye(4, device=dev),
+                         _WALK_W, _WALK_H)
+    vals = torch.from_numpy(rng.uniform(
+        -1.0, 1.0, (corners.shape[0], 3, 8)).astype(np.float32)).to(dev)
+    return ps, fe.attr_corner_cols(vals), h, y0
+
+
+def _walk_inputs(case, bands, dev="cuda"):
+    """The bin walk's inputs for a case: (rows, bin_start, bbox, channel
+    count, geometry kwargs, planar setup), every safe triangle binned."""
+    ps, attrs, h, y0 = _walk_case(case, dev)
+    info = tb.build_bins(ps, width=_WALK_W, height=h, y_start=y0,
+                         kmax=10_000, pair_budget_factor=1e4, bands=bands)
+    table, a, poison = fe.stream_table_planar(
+        ps, fe.attribute_plane_cols(ps, attrs))
+    rows = tb.gather_stream(table, info.ids, poison).contiguous()
+    counts = info.bin_start[1:] - info.bin_start[:-1]
+    assert info.n_overflow == 0
+    if case == "long":            # ... and empty bins
+        assert int(counts.max()) > 512 and bool((counts == 0).any())
+    if case == "one_warp":
+        assert int(counts.max()) == int(counts.sum()) >= 256
+    if case == "none":
+        assert rows.shape[0] == 0
+    geo = dict(width=_WALK_W, height=h, y_start=y0, bands=bands)
+    return rows, info.bin_start, fe.bbox_table(ps), a, geo, ps
+
+
+def _walk_seeds(z, ids, n_tri, a, seed):
+    """Seed buffers against a static frame (z, ids): a third of the
+    pixels tie its depth with an id one lower or one higher, a sixth are
+    +inf with an id (a record that misses the pixel must not take it),
+    the rest random; random G-buffer planes."""
+    g = torch.Generator(device=z.device).manual_seed(seed)
+    rand = lambda: torch.rand(z.shape, generator=g, device=z.device)
+    u = rand()
+    step = torch.where(rand() < 0.5, -1, 1)
+    rnd_id = torch.randint(0, n_tri + 1, z.shape, generator=g,
+                           device=z.device)
+    zs = torch.where(u < 0.33, z,
+                     torch.where(u < 0.5, float("inf"), 0.1 + 0.8 * rand()))
+    idseed = torch.where(u < 0.33, ids + step, rnd_id).to(torch.int32)
+    gb = torch.rand((a,) + tuple(z.shape), generator=g, device=z.device)
+    return zs, idseed, gb
+
+
+_WALK_CHANS = [("rgb", 3), ("normal", 3), ("uv", 2)]
+_WALK_PLANS = (dict(has_light=True, has_texture=True),    # lit + textured
+               dict(has_light=False, has_texture=False))  # flat rgb
+
+
+@pytest.mark.parametrize("bands", [1, 4])
+@pytest.mark.parametrize("case", _WALK_CASES)
+def test_bin_walk_matches_plain(case, bands):
+    """K2 (static and seeded, lit + textured and flat plans) and K5
+    against their plain versions: ids and depth bit for bit, planes
+    within PLANE_TOL, on long bins, one crowded warp rectangle, boxes at
+    rectangle and ragged frame edges, y_start, equal-depth ties (static
+    and seeded lex) and no pairs at all."""
+    rows, starts, bbox, a, geo, ps = _walk_inputs(case, bands)
+    params = shading_params(Light.default("cuda"),
+                            flat_color=(0.2, 0.5, 0.7))
+    _cuda.reset_launches()
+    zk, ik = tb.binned_vis_kernel(rows, starts, bbox=bbox, **geo)
+    zp, ip = tb.binned_vis_plain(rows, starts, bbox=bbox, **geo)
+    torch.cuda.synchronize()
+    assert _equal(ik, ip) and _equal(zk, zp)
+    assert bool((ik >= 0).any()) == (case != "none")
+    seeds = _walk_seeds(zk, ik, ps.num_triangles, a, seed=bands)
+    for plan in _WALK_PLANS:
+        for sd in (None, seeds):
+            kw = dict(bbox=bbox, seeds=sd, chans=_WALK_CHANS, **plan, **geo)
+            zk2, ik2, ok2 = tb.fused_kernel(rows, starts, params, **kw)
+            zp2, ip2, op2 = tb.fused_plain(rows, starts, params, **kw)
+            torch.cuda.synchronize()
+            assert _equal(ik2, ip2) and _equal(zk2, zp2)
+            assert float((ok2 - op2).abs().max()) <= PLANE_TOL
+            if sd is None:
+                assert _equal(ik2, ik) and _equal(zk2, zk)
+    assert _cuda.launches["binned_vis"] == 1
+    assert _cuda.launches["fused"] == 4
+    assert _cuda.launches["fused_seeded"] == 2
 
 
 def _tri_records(seed, n, w, h, centre=((-1.0, 1.0), (-1.0, 1.0)),
@@ -322,15 +463,42 @@ def test_wrappers_raise_on_bad_input():
     rows = torch.zeros((4, 17), device="cuda")
     starts = torch.zeros(2, dtype=torch.int32, device="cuda")
     tid = torch.zeros((8, 8), dtype=torch.int32, device="cuda")
+    bbox = torch.zeros((4, 4), dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError):     # one bin, not two
         tb.binned_vis_kernel(rows, torch.zeros(3, dtype=torch.int32,
                                                device="cuda"),
-                             width=8, height=8)
+                             bbox=bbox, width=8, height=8)
     with pytest.raises(TypeError):
-        tb.binned_vis_kernel(rows.double(), starts, width=8, height=8)
+        tb.binned_vis_kernel(rows.double(), starts, bbox=bbox, width=8,
+                             height=8)
     with pytest.raises(ValueError):     # 17 columns are not 11 + 3 * 1
         tb.resolve_kernel(rows, starts, tid, n_channels=1, width=8,
                           height=8)
+
+
+def test_bin_walk_raises_on_bad_bbox():
+    """K2 and K5 take the bbox as [T, 4] int32, contiguous, on the rows'
+    card and 16-byte aligned (int4 loads); anything else raises."""
+    rows = torch.zeros((4, 17), device="cuda")
+    starts = torch.zeros(2, dtype=torch.int32, device="cuda")
+    words = torch.zeros(17, dtype=torch.int32, device="cuda")
+    bbox = words[:16].view(4, 4)
+    geo = dict(width=8, height=8)
+    params = torch.zeros(32, device="cuda")
+    shade = dict(chans=[("uv", 2)], has_light=False, has_texture=True,
+                 bands=1)
+    tb.binned_vis_kernel(rows, starts, bbox=bbox, **geo)
+    tb.fused_kernel(rows, starts, params, bbox=bbox, **shade, **geo)
+    for bad, err in ((bbox[:, :3].contiguous(), ValueError),  # [T, 3]
+                     (bbox.reshape(16), ValueError),          # 1-d
+                     (bbox.long(), TypeError),
+                     (bbox.t(), ValueError),                  # strided
+                     (words[1:].view(4, 4), ValueError),      # misaligned
+                     (bbox.cpu(), ValueError)):
+        with pytest.raises(err):
+            tb.binned_vis_kernel(rows, starts, bbox=bad, **geo)
+        with pytest.raises(err):
+            tb.fused_kernel(rows, starts, params, bbox=bad, **shade, **geo)
 
 
 def _sampler_case(th, tw, c, wrap, seed=3, cap=64):

@@ -148,3 +148,69 @@ def test_import_leaves_jax_out():
         " or m.startswith('software_renderer_tpu.')]\n"
         "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def _premise_corners(rng, w, h):
+    """{family: [n, 3, 3] float32 NDC corners (w = 1, z in (0.1, 0.9))}:
+    random triangles and adversarial ones for the bbox premise."""
+    def tri(xy):
+        z = rng.uniform(0.1, 0.9, xy.shape[:2] + (1,))
+        return np.concatenate([xy, z], -1).astype(np.float32)
+
+    def ndc(px, py):                 # pixel coordinates -> NDC
+        return np.stack([px / w * 2.0 - 1.0, 1.0 - py / h * 2.0], -1)
+
+    n = 160
+    p0 = rng.uniform(-1.2, 1.2, (n, 1, 2))
+    fams = {"random": tri(p0 + rng.uniform(-0.3, 0.3, (n, 3, 2)))}
+    # Slivers: a long edge and a third corner within a pixel or two of it.
+    a = rng.uniform(-0.2, 1.2, (n, 2)) * [w, h]
+    d = rng.normal(size=(n, 2)) * rng.uniform(5, 3 * w, (n, 1))
+    t = rng.uniform(0.0, 1.0, (n, 1))
+    perp = np.stack([-d[:, 1], d[:, 0]], -1) / np.linalg.norm(d, axis=1,
+                                                             keepdims=True)
+    c = a + t * d + perp * rng.uniform(-2.0, 2.0, (n, 1))
+    fams["sliver"] = tri(ndc(*np.stack([a, a + d, c], 1).transpose(2, 0, 1)))
+    # Corners on half-integer pixel coordinates (round half away).
+    hp = rng.integers(-4, [w + 4, h + 4], (n, 3, 2)) + 0.5
+    fams["half_integer"] = tri(ndc(hp[..., 0], hp[..., 1]))
+    # Near-degenerate: three nearly collinear corners, |2 area| of a few
+    # pixels.
+    q = rng.integers(0, [w, h], (n, 1, 2)) + rng.integers(
+        -40, 40, (n, 1, 2)) * np.array([[[1.0], [2.0], [3.0]]])
+    q = q + rng.integers(-1, 2, (n, 3, 2)) * [[[0], [0], [1]]]
+    fams["near_degenerate"] = tri(ndc(q[..., 0], q[..., 1]))
+    # Larger than the frame, up to far off screen.
+    big = rng.uniform(-1.0, 1.0, (n, 3, 2)) * 10.0 ** rng.uniform(
+        0.3, 4.0, (n, 1, 1))
+    fams["larger_than_frame"] = tri(big)
+    return fams
+
+
+def test_safe_coverage_stays_in_bbox():
+    """The premise of the bin walk's cull (csrc/fused.cu): with the plain
+    front-end and the plain walk's edge test, no frame pixel outside a
+    valid, coverage-safe triangle's (bx0, by0, bx1, by1) passes the edge
+    test."""
+    w, h = 96, 64
+    rng = np.random.default_rng(21)
+    xs = torch.arange(w, dtype=torch.float32)[None, None, :] + 0.5
+    ys = torch.arange(h, dtype=torch.float32)[None, :, None] + 0.5
+    px = torch.arange(w)[None, None, :]
+    py = torch.arange(h)[None, :, None]
+    for fam, corners in _premise_corners(rng, w, h).items():
+        ps = tfe.planar_front(tfe.corner_cols(torch.from_numpy(corners)),
+                              torch.eye(4), w, h)
+        table, _, _ = tfe.stream_table_planar(ps, [])
+        keep = ps.valid & ps.safe
+        r = table[keep][:, :, None, None]
+        e0 = r[:, 0] * xs + r[:, 2] * ys + r[:, 4]
+        e1 = r[:, 1] * xs + r[:, 3] * ys + r[:, 5]
+        e2 = r[:, 6] - e0 - e1
+        inside = (e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0)
+        bb = tfe.bbox_table(ps)[keep][:, :, None, None]
+        in_box = ((px >= bb[:, 0]) & (px <= bb[:, 2]) & (py >= bb[:, 1])
+                  & (py <= bb[:, 3]))
+        assert int(keep.sum()) >= 20, (fam, int(keep.sum()))
+        assert bool(inside.any()), fam
+        assert not bool((inside & ~in_box).any()), fam
