@@ -11,15 +11,17 @@ the script exits non-zero without printing a result:
 2. build every kernel of the render path from csrc/ (nvcc, at first use);
 3. each kernel against its plain PyTorch version on the same CUDA inputs
    at config-4 shapes (1920x1080, ~100k triangles): coverage, triangle id
-   and depth bit-equal, shaded planes within PLANE_TOL; times of both;
+   and depth bit-equal, the front-end's rows and stream table bit-equal,
+   shaded planes within PLANE_TOL; each kernel's time by CUDA-graph replay
+   (and of back-to-back calls), the plain version's by CUDA events;
 4. a forced spill (config 2 at 512x512 with kmax=1): the overflow kernels
    and the seeded fused kernel launch, and the frame equals the spill-free
    one;
 5. the main path: launch counters reset, then 8 frames of the config-4
    animation (bench.py's transform; frames 120, 240 and 600 spill, so the
    overflow kernels run on the path too) through render(); counters,
-   coverage, finiteness and ms/frame from CUDA events; device ms/frame
-   from a profile of the same frames;
+   coverage, finiteness and ms/frame from CUDA events; device ms and
+   device kernels per frame from a profile of the same frames;
 6. the same small scene rendered on the card and on the CPU (plain
    versions) with the auto, reference and pallas backends: alpha and
    depth bit-equal, color within 1e-3;
@@ -78,7 +80,8 @@ from software_renderer_tpu_torch.ops import frontend as fe
 from software_renderer_tpu_torch.ops import texture as ttex
 from software_renderer_tpu_torch.ops import texture_kernel as ttk
 from software_renderer_tpu_torch.ops import transforms as tf
-from software_renderer_tpu_torch.ops.frontend_kernel import fe_kernel, fe_plain
+from software_renderer_tpu_torch.ops.frontend_kernel import (
+    fe_kernel, fe_plain, fe_table_kernel, fe_table_plain)
 from software_renderer_tpu_torch.ops.rasterize_kernel import (
     _poison_row, visibility_kernel, visibility_merge_kernel,
     visibility_merge_plain, visibility_pallas, visibility_plain)
@@ -115,12 +118,17 @@ BUDGET = 0.85
 # for this card, as PERF.md section 6 records them (NVIDIA H100 80GB
 # HBM3, 700.00 W): the record walk that staged every record for each
 # 16x16 block (K3 on the overflow set, K3' on every record), the window
-# lookup that staged an [8, 256] window per segment (K8), and the bin walk
+# lookup that staged an [8, 256] window per segment (K8), the bin walk
 # that tested every record of a bin on every pixel of its slab (K2 static,
-# K5). Printed beside this run's times in phase 3, never in the kernels
-# line.
+# K5), the front-end that wrote the 24 rows alone, one 256-thread block
+# per 256 triangles (K1, by graph replay, tools/profile_frames.py), and
+# the sampler that ran one thread per lane on planar tables (K7). Printed
+# beside this run's times in phase 3, never in the kernels line; K1's
+# earlier_ms is the previous design's whole front-end as this run times
+# it (the rows, then the torch planes and stream table).
 EARLIER_MS = {"visibility_merge": 10.59, "visibility": 69.68,
-              "window_lookup": 0.0175, "fused": 0.460, "binned_vis": 0.818}
+              "window_lookup": 0.0175, "fused": 0.460, "binned_vis": 0.818,
+              "fe": 0.00593, "sampler": 0.0241}
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, 700 W): float32
 # outside the tensor cores, and HBM3.
@@ -136,8 +144,11 @@ OPS_TEST_CLAMPED = 24
 # (normalise, two dots, pow, combine), counted from fused.cu.
 OPS_EPILOGUE = 40
 # Per triangle in the front-end: corner transform and divide, screen
-# mapping, edges, depth plane, bbox and certificate, counted from fe.cu.
+# mapping, edges, depth plane, bbox and certificate, counted from fe.cu;
+# per attribute channel, three planes of 3 multiplies, 2 adds and the
+# multiply by 1/|D|.
 OPS_FE = 200
+OPS_FE_CHANNEL = 18
 # Per texture channel and lane in the bilinear lerp: three subtractions,
 # three multiplications, three additions.
 OPS_LERP = 9
@@ -254,22 +265,45 @@ def phase_kernels(dev):
     cc = fe.corner_cols(rp.mesh.positions[rp.mesh.triangles().long()])
     cols = torch.stack([c for corner in cc for c in corner]).contiguous()
     m16 = rp.transform.reshape(16).contiguous()
-    fe_args = (cols, m16, w, h)
-    rk = fe_kernel(*fe_args, cull_backfaces=True)
-    rpl = fe_plain(*fe_args, cull_backfaces=True)
+    vals = torch.stack([v for chan in attrs for v in chan]).contiguous()
+    fe_args = (cols, m16, vals, w, h)
+    rk, tk = fe_table_kernel(*fe_args, cull_backfaces=True)
+    rpl, tpl = fe_table_plain(*fe_args, cull_backfaces=True)
+    rows_only = fe_kernel(cols, m16, w, h, cull_backfaces=True)
     sync()
     assert_bit_equal(rk, rpl, "K1 front-end rows")
-    res["fe"] = dict(max_abs_err=max_err(rk, rpl),
-                     ms=cuda_ms(lambda: fe_kernel(*fe_args,
-                                                  cull_backfaces=True), 50),
-                     plain_ms=cuda_ms(lambda: fe_plain(
-                         *fe_args, cull_backfaces=True), 5),
-                     shape=f"T={t}",
-                     **bound(nbytes(cols, m16, rk), OPS_FE * t))
+    assert_bit_equal(tk, tpl, "K1 stream table")
+    assert_bit_equal(rows_only, rpl, "K1 front-end rows, rows alone")
+
+    def earlier_front():
+        # The previous design: the rows, then the planes and the table
+        # from torch ops.
+        ps_ = fe.planar_setup_from_rows(fe_kernel(cols, m16, w, h,
+                                                  cull_backfaces=True))
+        return fe.stream_table_planar(ps_, fe.attribute_plane_cols(ps_,
+                                                                   attrs))
+
+    # Every kernel by CUDA-graph replay (most are shorter than their
+    # wrappers' host overhead); launch_loop_ms is back-to-back calls.
+    res["fe"] = dict(
+        max_abs_err=max(max_err(rk, rpl), max_err(tk, tpl)),
+        ms=graph_ms(lambda: fe_table_kernel(*fe_args, cull_backfaces=True),
+                    50),
+        launch_loop_ms=cuda_ms(lambda: fe_table_kernel(
+            *fe_args, cull_backfaces=True), 50),
+        rows_only_ms=graph_ms(lambda: fe_kernel(cols, m16, w, h,
+                                                cull_backfaces=True), 50),
+        earlier_ms=graph_ms(earlier_front, 20),
+        plain_ms=cuda_ms(lambda: fe_table_plain(
+            *fe_args, cull_backfaces=True), 5),
+        shape=f"T={t}, A={len(attrs)}",
+        **bound(nbytes(cols, m16, vals, rk, tk),
+                (OPS_FE + OPS_FE_CHANNEL * len(attrs)) * t))
     bbox = fe.bbox_table(ps)
 
     table, a, poison = fe.stream_table_planar(
         ps, fe.attribute_plane_cols(ps, attrs))
+    assert_bit_equal(table, tk, "stream table of the plain composition")
     kw = dict(width=w, height=h, chans=chans, has_light=True,
               has_texture=True, bands=4, bbox=bbox)
     info = tb.build_bins(ps, width=w, height=h, kmax=48,
@@ -282,8 +316,6 @@ def phase_kernels(dev):
     assert_bit_equal(zk, zp, "K2 depth")
     err2 = max_err(ok, op)
     assert err2 <= PLANE_TOL, f"K2 planes differ by {err2}"
-    # K2 and K5 by CUDA-graph replay: shorter than the host's launch
-    # overhead of their wrappers; launch_loop_ms is back-to-back calls.
     res["fused"] = dict(
         max_abs_err=err2,
         ms=graph_ms(lambda: tb.fused_kernel(rows, info.bin_start, prm, **kw),
@@ -314,8 +346,10 @@ def phase_kernels(dev):
     assert_bit_equal(z3, z3p, "K3 depth")
     res["visibility_merge"] = dict(
         max_abs_err=max_err(z3, z3p),
-        ms=cuda_ms(lambda: visibility_merge_kernel(rec, z0, i0, width=w,
-                                                   height=h), 20),
+        ms=graph_ms(lambda: visibility_merge_kernel(rec, z0, i0, width=w,
+                                                    height=h), 20),
+        launch_loop_ms=cuda_ms(lambda: visibility_merge_kernel(
+            rec, z0, i0, width=w, height=h), 20),
         plain_ms=cuda_ms(lambda: visibility_merge_plain(
             rec, z0, i0, width=w, height=h), 1),
         shape=f"{ov.numel()} overflow records",
@@ -331,8 +365,10 @@ def phase_kernels(dev):
     assert err4 <= PLANE_TOL, f"K4 planes differ by {err4}"
     res["resolve_merge"] = dict(
         max_abs_err=err4,
-        ms=cuda_ms(lambda: tb.resolve_merge_kernel(ov_rows, i3, g0, width=w,
-                                                   height=h), 20),
+        ms=graph_ms(lambda: tb.resolve_merge_kernel(ov_rows, i3, g0, width=w,
+                                                    height=h), 20),
+        launch_loop_ms=cuda_ms(lambda: tb.resolve_merge_kernel(
+            ov_rows, i3, g0, width=w, height=h), 20),
         plain_ms=cuda_ms(lambda: tb.resolve_merge_plain(
             ov_rows, i3, g0, width=w, height=h), 5),
         shape=f"{ov.numel()} overflow rows",
@@ -393,9 +429,11 @@ def phase_kernels(dev):
           f"version", flush=True)
     res["visibility"] = dict(
         max_abs_err=max(max_err(zc, zcp), max_err(zb, zbp)),
-        ms=cuda_ms(lambda: visibility_kernel(rec_all, width=w, height=h),
-                   20),
-        cube_1080p_ms=cuda_ms(lambda: visibility_kernel(
+        ms=graph_ms(lambda: visibility_kernel(rec_all, width=w, height=h),
+                    20),
+        launch_loop_ms=cuda_ms(lambda: visibility_kernel(
+            rec_all, width=w, height=h), 20),
+        cube_1080p_ms=graph_ms(lambda: visibility_kernel(
             rec_cube, width=w, height=h), 20),
         plain_ms=cuda_ms(lambda: visibility_plain(rec_all, width=w,
                                                   height=h), 1),
@@ -443,9 +481,11 @@ def phase_kernels(dev):
     n_won = torch.unique(pix_bin[hit] * tb.ID_SPAN + i5[hit].long()).numel()
     res["resolve"] = dict(
         max_abs_err=err6,
-        ms=cuda_ms(lambda: tb.resolve_kernel(rows_b, starts, i5,
-                                             n_channels=a, width=w,
-                                             height=h), 20),
+        ms=graph_ms(lambda: tb.resolve_kernel(rows_b, starts, i5,
+                                              n_channels=a, width=w,
+                                              height=h), 20),
+        launch_loop_ms=cuda_ms(lambda: tb.resolve_kernel(
+            rows_b, starts, i5, n_channels=a, width=w, height=h), 20),
         plain_ms=cuda_ms(lambda: tb.resolve_plain(
             rows_b, starts, i5, n_channels=a, width=w, height=h), 5),
         shape=f"{info_b.ids.numel()} rows, {a} channels, {n_won} won",
@@ -458,9 +498,10 @@ def phase_kernels(dev):
                           ("K5", starts)):
         print(f"records per bin, {what}: {json.dumps(percentiles(starts_))}",
               flush=True)
+    res["fe"]["earlier_kernel_ms"] = EARLIER_MS["fe"]
     for name, r in res.items():
         if name in EARLIER_MS:
-            r["earlier_ms"] = EARLIER_MS[name]
+            r.setdefault("earlier_ms", EARLIER_MS[name])
         print(f"  {name}: {json.dumps(r)}", flush=True)
     _cuda.reset_launches()
     return res
@@ -523,10 +564,12 @@ def phase_main(dev, card):
     print(f"  finite: {finite}", flush=True)
     print(f"  ms/frame (CUDA events, {card}): {times}; mean "
           f"{sum(times) / len(times)}", flush=True)
-    dev_ms = top_device_ops(lambda: [render(p) for p in passes],
-                            f"{len(passes)} main-path frames")
+    dev_ms, n_kernels, n_copies = top_device_ops(
+        lambda: [render(p) for p in passes], f"{len(passes)} main-path frames")
     print(f"  device ms/frame (profiled kernels, {card}): "
-          f"{dev_ms / len(passes)}", flush=True)
+          f"{dev_ms / len(passes)}; device kernels/frame "
+          f"{n_kernels / len(passes)}, copies and memsets/frame "
+          f"{n_copies / len(passes)}", flush=True)
     assert finite, "non-finite color"
     assert all(c > 0 for c in cov), "a frame covered nothing"
     for k in ("fe", "fused", "visibility_merge", "resolve_merge",
@@ -598,10 +641,11 @@ def phase_backends(dev, card):
               f"{json.dumps(launches[name])}", flush=True)
         print(f"  ms/frame (CUDA events, {card}): {times}; mean "
               f"{sum(times) / len(times)}", flush=True)
-        dev_ms = top_device_ops(lambda: [fn(p) for p in passes],
-                                f"{len(passes)} {name} frames")
+        dev_ms, n_kernels, _ = top_device_ops(
+            lambda: [fn(p) for p in passes], f"{len(passes)} {name} frames")
         print(f"  device ms/frame (profiled kernels, {card}): "
-              f"{dev_ms / len(passes)}", flush=True)
+              f"{dev_ms / len(passes)}; device kernels/frame "
+              f"{n_kernels / len(passes)}", flush=True)
     need = {"pallas": ("fe", "visibility"),
             "binned": ("fe", "fused", "visibility_merge", "resolve_merge"),
             "flat": ("fe", "binned_vis"),
@@ -658,15 +702,18 @@ def phase_texture_kernels(dev):
 
     def route(wrap):
         prep = ttk.windowed_prep(u_s, v_s, cov_s, th=th, tw=tw, wrap=wrap)
-        return ttk.windowed_tables(tex.data, wrap), prep
+        return ttk.windowed_texels(tex.data, wrap), prep
 
-    geo = dict(th=th, tw=tw, wrap=tex.wrap)
-    tabs, prep = route(tex.wrap)
-    k7 = ttk.sampler_kernel(tabs, *prep, **geo)
-    p7 = ttk.sample_segments_windowed_plain(tabs, *prep, **geo)
+    geo = dict(c=c, th=th, tw=tw, wrap=tex.wrap)
+    texels, prep = route(tex.wrap)
+    tabs = ttk.windowed_tables(tex.data, tex.wrap)
+    k7 = ttk.sampler_kernel(texels, *prep, **geo)
+    p7 = ttk.sampler_plain(texels, *prep, **geo)
     quad = ttex.sample_texture_planes(tex, u, v)
     sync()
     assert_bit_equal(k7, p7, "K7 vs plain, every lane")
+    assert_bit_equal(k7, ttk.sample_segments_windowed_plain(
+        tabs, *prep, th=th, tw=tw, wrap=tex.wrap), "K7 vs planar plain")
     err_quad = max(max_err(k7[ch].reshape(h, w)[covered], quad[ch][covered])
                    for ch in range(c))
     assert err_quad <= PLANE_TOL, f"K7 vs quad-table sampler: {err_quad}"
@@ -675,8 +722,8 @@ def phase_texture_kernels(dev):
     # the first texel centre and at or below it (left of it the TPU
     # sampler's clamp lerps toward texel 1, where grid_sample holds texel
     # 0).
-    tabs_c, prep_c = route("clamp")
-    k7c = ttk.sampler_kernel(tabs_c, *prep_c, th=th, tw=tw, wrap="clamp")
+    texels_c, prep_c = route("clamp")
+    k7c = ttk.sampler_kernel(texels_c, *prep_c, **dict(geo, wrap="clamp"))
     img = tex.data.permute(2, 0, 1)[None].contiguous()
     grid = torch.stack([u_s * 2.0 - 1.0, v_s * 2.0 - 1.0], dim=-1)[None]
 
@@ -705,14 +752,14 @@ def phase_texture_kernels(dev):
     # are shorter than the host's launch overhead.
     res["sampler"] = dict(
         max_abs_err=max_err(k7, p7),
-        ms=graph_ms(lambda: ttk.sampler_kernel(tabs, *prep, **geo), 50),
-        launch_loop_ms=cuda_ms(lambda: ttk.sampler_kernel(tabs, *prep,
+        ms=graph_ms(lambda: ttk.sampler_kernel(texels, *prep, **geo), 50),
+        launch_loop_ms=cuda_ms(lambda: ttk.sampler_kernel(texels, *prep,
                                                           **geo), 50),
-        plain_ms=graph_ms(lambda: ttk.sample_segments_windowed_plain(
-            tabs, *prep, **geo), 5),
+        plain_ms=graph_ms(lambda: ttk.sampler_plain(texels, *prep, **geo),
+                          5),
         prep_ms=graph_ms(lambda: ttk.windowed_prep(
             u_s, v_s, cov_s, th=th, tw=tw, wrap=tex.wrap), 10),
-        tables_ms=graph_ms(lambda: ttk.windowed_tables(tex.data, tex.wrap),
+        texels_ms=graph_ms(lambda: ttk.windowed_texels(tex.data, tex.wrap),
                            20),
         quad_sampler_ms=graph_ms(
             lambda: ttex.sample_texture_planes(tex, u, v), 20),
@@ -822,7 +869,8 @@ def top_device_ops(fn, what, n=6):
     """Run ``fn`` once under torch.profiler and print the ``n`` operators
     with the most device time (self time, ms) and the device total, then
     the same for host (CPU self) time, with the host clock of the run.
-    Returns the device total (ms of kernels and copies)."""
+    Returns the device total (ms of kernels and copies), the count of
+    kernels run and the count of copies and memsets."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     t0 = time.perf_counter()
@@ -844,6 +892,9 @@ def top_device_ops(fn, what, n=6):
     kernels = [e for e in avgs
                if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(dev_us(e) for e in kernels) / 1e3
+    copies = sum(e.count for e in kernels
+                 if e.key.startswith(("Memcpy", "Memset")))
+    n_kernels = sum(e.count for e in kernels) - copies
     for side, key, evts in (("device", dev_us, kernels),
                             ("host", host_us, list(avgs))):
         evts = sorted(evts, key=key, reverse=True)
@@ -853,7 +904,7 @@ def top_device_ops(fn, what, n=6):
         print(f"  profile of one {what}: {side} self time {total} ms"
               f"{f' (host clock {wall} ms)' if side == 'host' else ''}; "
               f"top (op, ms, calls): {top}", flush=True)
-    return device_ms
+    return device_ms, n_kernels, copies
 
 
 def phase_training(dev, card):
@@ -955,7 +1006,7 @@ def main():
 
     src = "software_renderer_tpu_torch/csrc/"
     meta = {
-        "fe": ("fe_kernel", "fe.cu",
+        "fe": ("fe_table_kernel", "fe.cu",
                "software_renderer_tpu/ops/frontend_kernel.py:42"),
         "fused": ("fused_kernel", "fused.cu",
                   "software_renderer_tpu/ops/binning.py:703"),

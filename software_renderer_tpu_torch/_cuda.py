@@ -41,7 +41,7 @@ launches = {"fe": 0, "fused": 0, "fused_seeded": 0, "visibility_merge": 0,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "sr_fe": (_P, _I, _P, _I, _I, _I, _I, _F, _P, _P),
+    "sr_fe": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P),
     "sr_fused": (_P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                  _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     "sr_visibility_scratch": (_I, _I, _I, _P),

@@ -1,11 +1,28 @@
-// Planar front-end: vertex transform + triangle setup, one thread per
-// triangle. Replaces the TPU kernel _fe_kernel
-// (software_renderer_tpu/ops/frontend_kernel.py:42); the plain version is
-// _front_math in software_renderer_tpu_torch/ops/frontend.py, whose
-// operations this kernel repeats in the same order.
+// K1, the planar front-end: vertex transform + triangle setup, and the
+// [T, 11 + 3A] stream table that the bin walk (K2/K5, fused.cu) reads.
+// Replaces the TPU kernel _fe_kernel
+// (software_renderer_tpu/ops/frontend_kernel.py:42) and the XLA stages
+// beside it that build the attribute planes and the stream table. Plain
+// versions: _front_math in software_renderer_tpu_torch/ops/frontend.py
+// (the 24 rows) and stream_table_planar(attribute_plane_cols(...)) (the
+// table); this kernel repeats their operations in the same order.
 //
-// Bound: memory (36 bytes in, 96 bytes out per triangle); each of the 9
-// input and 24 output rows is read/written coalesced.
+// Bound: memory. Per triangle 36 bytes of corners and 12 A bytes of
+// corner attributes in, 96 bytes of rows and 44 + 12 A bytes of table out
+// (37 MB at 100k triangles and A = 8), for about 200 + 18 A float
+// operations. Design:
+// * One pass writes the rows and the table, so the planes, ids and poison
+//   rows cost no launches of their own (on the TPU, XLA fuses them).
+// * 128-thread blocks: 100k triangles make ~780 blocks, ~6 on each of the
+//   132 SMs, all resident at once.
+// * The 16 transform scalars are read once per block into shared memory;
+//   each thread's corner attributes are loaded before the setup math, so
+//   their latency hides behind it.
+// * A table row is 44 + 12 A bytes, so a warp storing its rows directly
+//   writes 32 scattered pieces; instead each block stages its rows in
+//   shared memory and stores the block's contiguous slice of the table in
+//   16-byte chunks.
+// * A is a runtime count up to kMaxChannels.
 #include "common.cuh"
 
 namespace {
@@ -55,23 +72,39 @@ __device__ bool coverage_safe(float x1, float y1, float x2, float y2,
   return (e_shift <= margin) && (v_shift <= margin);
 }
 
-__global__ void fe_kernel(const float* __restrict__ cols, int t,
-                          const float* __restrict__ m, int width, int height,
-                          int cull, int ccw, float near_eps,
-                          float* __restrict__ out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= t) return;
-  const float wf = (float)width, hf = (float)height;
-  float mm[16];
+constexpr int kThreads = 128;
+constexpr int kMaxChannels = 9;
+constexpr int kRec = 11;  // a0 a1 b0 b1 c0 c1 |D| zx zy zc id
+constexpr int kMaxCols = kRec + 3 * kMaxChannels;
+
+// One thread per triangle; kTable adds the stream table of ``a`` attribute
+// channels ([3a, t] corner columns, v1 v2 v3 per channel).
+template <bool kTable>
+__global__ void __launch_bounds__(kThreads)
+fe_kernel(const float* __restrict__ cols, int t, const float* __restrict__ m,
+          const float* __restrict__ attrs, int a, int width, int height,
+          int cull, int ccw, float near_eps, float* __restrict__ out,
+          float* __restrict__ table) {
+  __shared__ float mm[16];
+  __shared__ __align__(16) float stage[kTable ? kThreads * kMaxCols : 4];
+  const int first = blockIdx.x * kThreads;
+  const int i = first + threadIdx.x;
+  const bool live = i < t;
+  if (threadIdx.x < 16) mm[threadIdx.x] = m[threadIdx.x];
+  float av[3 * kMaxChannels];
 #pragma unroll
-  for (int k = 0; k < 16; ++k) mm[k] = m[k];
+  for (int k = 0; k < 3 * kMaxChannels; ++k)
+    av[k] = (kTable && live && k < 3 * a) ? attrs[k * (size_t)t + i] : 0.0f;
+  __syncthreads();
+
+  const float wf = (float)width, hf = (float)height;
   float xs[3], ys[3], zs[3], ws[3];
   bool near_ok = true;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    float X = cols[(3 * c) * (size_t)t + i];
-    float Y = cols[(3 * c + 1) * (size_t)t + i];
-    float Z = cols[(3 * c + 2) * (size_t)t + i];
+    float X = live ? cols[(3 * c) * (size_t)t + i] : 0.0f;
+    float Y = live ? cols[(3 * c + 1) * (size_t)t + i] : 0.0f;
+    float Z = live ? cols[(3 * c + 2) * (size_t)t + i] : 0.0f;
     float cx = mm[0] * X + mm[1] * Y + mm[2] * Z + mm[3];
     float cy = mm[4] * X + mm[5] * Y + mm[6] * Z + mm[7];
     float cz = mm[8] * X + mm[9] * Y + mm[10] * Z + mm[11];
@@ -144,18 +177,67 @@ __global__ void fe_kernel(const float* __restrict__ cols, int t,
                          valid ? abs_d : 0.0f, inv_area, d, bx0, by0, bx1,
                          by1, valid ? 1.0f : 0.0f, ws[0], ws[1], ws[2],
                          safe ? 1.0f : 0.0f};
+  if (live) {
 #pragma unroll
-  for (int r = 0; r < 24; ++r) out[r * (size_t)t + i] = row[r];
+    for (int r = 0; r < 24; ++r) out[r * (size_t)t + i] = row[r];
+  }
+  if (!kTable) return;
+
+  // The table row: stream_table_planar's columns, then per channel the
+  // planes ((a0 v1 + a1 v2) + a2 v3) * inv_area (x, y, const); invalid
+  // triangles get the poison row.
+  const int ncols = kRec + 3 * a;
+  float* r = stage + threadIdx.x * ncols;
+  if (live && valid) {
+    const float head[kRec] = {a0, a1, b0, b1, c0, c1, abs_d, zx, zy, zc,
+                              (float)i};
+#pragma unroll
+    for (int k = 0; k < kRec; ++k) r[k] = head[k];
+#pragma unroll
+    for (int ch = 0; ch < kMaxChannels; ++ch) {
+      if (ch < a) {
+        const float v1 = av[3 * ch], v2 = av[3 * ch + 1], v3 = av[3 * ch + 2];
+        r[kRec + 3 * ch] = ((a0 * v1 + a1 * v2) + a2 * v3) * inv_area;
+        r[kRec + 3 * ch + 1] = ((b0 * v1 + b1 * v2) + b2 * v3) * inv_area;
+        r[kRec + 3 * ch + 2] = ((c0 * v1 + c1 * v2) + c2 * v3) * inv_area;
+      }
+    }
+  } else if (live) {
+    for (int k = 0; k < ncols; ++k) r[k] = 0.0f;
+    r[4] = -1.0f;       // c0 = c1 = -1: outside everywhere
+    r[5] = -1.0f;
+    r[9] = INFINITY;    // zc
+    r[10] = -1.0f;      // id
+  }
+  __syncthreads();
+  // The block's rows are one contiguous slice of the table, starting at a
+  // multiple of kThreads * 4 bytes: store it in 16-byte chunks.
+  const int n = min(kThreads, t - first) * ncols;
+  float* dst = table + (size_t)first * ncols;
+  const float4* src4 = reinterpret_cast<const float4*>(stage);
+  float4* dst4 = reinterpret_cast<float4*>(dst);
+  for (int k = threadIdx.x; k < n / 4; k += kThreads) dst4[k] = src4[k];
+  for (int k = (n / 4) * 4 + threadIdx.x; k < n; k += kThreads)
+    dst[k] = stage[k];
 }
 
 }  // namespace
 
-extern "C" int sr_fe(const float* cols, int t, const float* m, int width,
-                     int height, int cull, int ccw, float near_eps,
-                     float* out, void* stream) {
-  const int threads = 256;
-  fe_kernel<<<(t + threads - 1) / threads, threads, 0,
-              (cudaStream_t)stream>>>(cols, t, m, width, height, cull, ccw,
-                                      near_eps, out);
+// attrs: [3a, t] corner-attribute columns, read only with a table; table:
+// [t, 11 + 3a] float32, 16-byte aligned, or null for the rows alone.
+extern "C" int sr_fe(const float* cols, int t, const float* m,
+                     const float* attrs, int a, int width, int height,
+                     int cull, int ccw, float near_eps, float* out,
+                     float* table, void* stream) {
+  if (t < 0 || a < 0 || a > kMaxChannels) return (int)cudaErrorInvalidValue;
+  if (t == 0) return (int)cudaSuccess;
+  const unsigned blocks = (unsigned)((t + kThreads - 1) / kThreads);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (table)
+    fe_kernel<true><<<blocks, kThreads, 0, s>>>(
+        cols, t, m, attrs, a, width, height, cull, ccw, near_eps, out, table);
+  else
+    fe_kernel<false><<<blocks, kThreads, 0, s>>>(
+        cols, t, m, attrs, 0, width, height, cull, ccw, near_eps, out, table);
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,12 @@
 """The device an entry point builds on when its caller names none.
 
 Counterpart of the JAX package's utils/device.py. The port's scene
-functions, OBJ reader and converters build on the card unless asked for
-the CPU; without a card they raise rather than fall back, so a run that
-meant to use the kernels never quietly takes the plain versions.
-Low-level helpers (transforms, shapes, lights, textures, the ops) follow
-the device of their arguments instead.
+functions, mesh builders (``mesh_from_numpy``, the shapes, the OBJ
+reader), ``checkerboard``, ``Light.default`` and converters build on the
+card unless asked for the CPU; without a card they raise rather than fall
+back, so a run that meant to use the kernels never quietly takes the
+plain versions. The transforms and the ops follow the device of their
+arguments instead.
 """
 
 from __future__ import annotations

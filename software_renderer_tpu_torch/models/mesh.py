@@ -8,6 +8,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..device import or_default
+
 
 @dataclasses.dataclass
 class Mesh:
@@ -45,7 +47,9 @@ class Mesh:
 def mesh_from_numpy(positions, indices, colors=None, normals=None,
                     uvs=None, device=None) -> Mesh:
     """Build a Mesh from array-likes (float attributes cast to float32,
-    indices to int32, the same casts the JAX package makes)."""
+    indices to int32, the same casts the JAX package makes), on the card
+    unless ``device`` says otherwise (device.py)."""
+    device = or_default(device)
     f32 = lambda a: None if a is None else torch.from_numpy(
         np.ascontiguousarray(np.asarray(a).astype(np.float32))).to(device)
     return Mesh(

@@ -34,8 +34,8 @@ def reference_sphere(time, width: int = 512, height: int = 512,
     """The reference's live demo: 13x13 UV sphere, inward normals,
     abs(normal) colors, the reference demo transform."""
     device = or_default(device)
-    mesh = shapes.uv_sphere(radius=0.2, segments=13,
-                            inward_normals=True).to(device)
+    mesh = shapes.uv_sphere(radius=0.2, segments=13, inward_normals=True,
+                            device=device)
     return RenderPass(mesh=mesh,
                       transform=tf.reference_demo_transform(time, device),
                       width=width, height=height, shading=backend_shading,
@@ -46,7 +46,7 @@ def config1_flat_cube(time, width: int = 256, height: int = 256,
                       device=None) -> RenderPass:
     """Config 1: a single rotating face-colored cube at 256^2."""
     device = or_default(device)
-    mesh = shapes.box(size=0.8, face_colors=True).to(device)
+    mesh = shapes.box(size=0.8, face_colors=True, device=device)
     q = tf.quat_from_axis_angle(_axis([1.0, 1.0, 0.0], device),
                                 torch.as_tensor(time, dtype=torch.float32,
                                                 device=device))
@@ -61,7 +61,7 @@ def config2_textured_cube(time, width: int = 512, height: int = 512,
                           device=None) -> RenderPass:
     """Config 2: textured Phong cube, z-buffer + backface culling."""
     device = or_default(device)
-    mesh = shapes.box(size=0.8, face_colors=False).to(device)
+    mesh = shapes.box(size=0.8, face_colors=False, device=device)
     q = tf.quat_from_axis_angle(_axis([1.0, 2.0, 0.5], device),
                                 torch.as_tensor(time, dtype=torch.float32,
                                                 device=device))
@@ -98,7 +98,8 @@ def config4_many_objects(time, width: int = 1920, height: int = 1080,
     """Config 4: the ~100k-triangle multi-object scene, Phong + bilinear
     texture at 1920x1080 (the north-star scene)."""
     device = or_default(device)
-    mesh = shapes.many_objects_scene(target_triangles=triangles).to(device)
+    mesh = shapes.many_objects_scene(target_triangles=triangles,
+                                     device=device)
     q = tf.quat_from_axis_angle(
         torch.tensor([0.0, 1.0, 0.0], device=device),
         torch.as_tensor(time, dtype=torch.float32, device=device) * 0.3)

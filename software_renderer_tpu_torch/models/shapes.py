@@ -1,6 +1,7 @@
 """Procedural meshes, generated in numpy exactly as the JAX package does
 (same formulas, same ``default_rng(seed)`` draws in the same order), so
-that both packages build bit-identical scenes."""
+that both packages build bit-identical scenes. Each lands on the card
+unless ``device`` says otherwise (device.py)."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from .mesh import Mesh, mesh_from_numpy
 
 def uv_sphere(radius: float = 0.2, segments: int = 13,
               rings: int | None = None,
-              inward_normals: bool = False) -> Mesh:
+              inward_normals: bool = False, device=None) -> Mesh:
     """(segments x rings) latitude/longitude sphere; pole quads become
     single triangles. Colors are abs(normal), as in the reference demo."""
     rings = segments if rings is None else rings
@@ -42,7 +43,8 @@ def uv_sphere(radius: float = 0.2, segments: int = 13,
             if r < sv - 1:
                 tris.append([b, d, cc])
     return mesh_from_numpy(positions, np.asarray(tris, np.int32).reshape(-1),
-                           colors=np.abs(normals), normals=normals, uvs=uvs)
+                           colors=np.abs(normals), normals=normals, uvs=uvs,
+                           device=device)
 
 
 _BOX_FACES = [
@@ -60,7 +62,7 @@ _FACE_COLORS = np.array(
     np.float32)
 
 
-def box(size=1.0, face_colors: bool = True) -> Mesh:
+def box(size=1.0, face_colors: bool = True, device=None) -> Mesh:
     """Axis-aligned box: 24 vertices (4 per face), 12 triangles, per-face
     normals and UVs, distinct face colors or abs(normal) colors."""
     half = np.broadcast_to(np.asarray(size, np.float64) / 2.0, (3,))
@@ -79,11 +81,12 @@ def box(size=1.0, face_colors: bool = True) -> Mesh:
         indices += [base, base + 1, base + 2, base, base + 2, base + 3]
     return mesh_from_numpy(np.asarray(positions), np.asarray(indices),
                            colors=np.asarray(colors),
-                           normals=np.asarray(normals), uvs=np.asarray(uvs))
+                           normals=np.asarray(normals), uvs=np.asarray(uvs),
+                           device=device)
 
 
 def torus(major_radius=0.3, minor_radius=0.12, segments_u=48,
-          segments_v=24) -> Mesh:
+          segments_v=24, device=None) -> Mesh:
     """Torus with abs(normal) colors."""
     su, sv = segments_u, segments_v
     iu = np.arange(su + 1)
@@ -109,18 +112,19 @@ def torus(major_radius=0.3, minor_radius=0.12, segments_u=48,
             d = cc + 1
             tris += [[a, b, cc], [b, d, cc]]
     return mesh_from_numpy(positions, np.asarray(tris, np.int32).reshape(-1),
-                           colors=np.abs(normals), normals=normals, uvs=uvs)
+                           colors=np.abs(normals), normals=normals, uvs=uvs,
+                           device=device)
 
 
 def many_objects_scene(target_triangles: int = 100_000, seed: int = 0,
-                       extent: float = 1.6) -> Mesh:
+                       extent: float = 1.6, device=None) -> Mesh:
     """Config 4's scene: randomly placed, rotated, scaled and tinted
     spheres, boxes and tori baked into one mesh (numpy, host side)."""
     rng = np.random.default_rng(seed)
-    protos = [uv_sphere(radius=0.5, segments=10),
-              box(size=1.0, face_colors=False),
+    protos = [uv_sphere(radius=0.5, segments=10, device="cpu"),
+              box(size=1.0, face_colors=False, device="cpu"),
               torus(major_radius=0.5, minor_radius=0.2,
-                    segments_u=12, segments_v=8)]
+                    segments_u=12, segments_v=8, device="cpu")]
     protos_np = [(p.positions.numpy(), p.normals.numpy(), p.colors.numpy(),
                   p.uvs.numpy(), p.indices.numpy()) for p in protos]
     positions, normals, colors, uvs, indices = [], [], [], [], []
@@ -148,4 +152,4 @@ def many_objects_scene(target_triangles: int = 100_000, seed: int = 0,
         np.concatenate(indices),
         colors=np.concatenate(colors),
         normals=np.concatenate(normals).astype(np.float32),
-        uvs=np.concatenate(uvs))
+        uvs=np.concatenate(uvs), device=device)

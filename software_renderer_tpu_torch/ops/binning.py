@@ -459,12 +459,15 @@ def fused_pipeline(ps: fe.PlanarSetup, attrs, params, *, width: int,
                    tile_w: int = TILE_W, chunk: int = CHUNK,
                    kmax: int | None = None,
                    pair_budget_factor: float = PAIR_BUDGET_FACTOR,
-                   bands: int | None = None):
+                   bands: int | None = None, stream_table=None):
     """Binned raster with fused shading.
 
     attrs: list over the channels of ``chans`` of per-corner (v1, v2, v3)
     [T] columns; params: the shading row. Returns (depth [H, W], tri_id
     [H, W], out [n_out, H, W]) with the fused_output_channels plan.
+    stream_table: the (table, n_channels, poison) of these attributes as
+    ``fe.planar_front_table`` returns it (``attrs`` is then not read);
+    built here from ``ps`` and ``attrs`` when None.
 
     Frames with overflow (unsafe triangles, spans past kmax, pairs past
     the budget) first rasterize the overflow triangles into full-frame
@@ -479,8 +482,10 @@ def fused_pipeline(ps: fe.PlanarSetup, attrs, params, *, width: int,
     info = build_bins(ps, width=width, height=height, y_start=y_start,
                       tile_h=tile_h, tile_w=tile_w, chunk=chunk, kmax=kmax,
                       pair_budget_factor=pair_budget_factor, bands=bands)
-    table, a, poison = fe.stream_table_planar(
-        ps, fe.attribute_plane_cols(ps, attrs))
+    if stream_table is None:
+        stream_table = fe.stream_table_planar(
+            ps, fe.attribute_plane_cols(ps, attrs))
+    table, a, poison = stream_table
     rows = gather_stream(table, info.ids, poison).contiguous()
     bbox = fe.bbox_table(ps)
     seeds = None
@@ -648,12 +653,14 @@ def binned_pipeline(ps: fe.PlanarSetup, attrs=None, *, width: int,
                     height: int, y_start: int = 0, tile_h: int = TILE_H,
                     tile_w: int = TILE_W, chunk: int = CHUNK,
                     kmax: int = KMAX,
-                    pair_budget_factor: float = PAIR_BUDGET_FACTOR):
+                    pair_budget_factor: float = PAIR_BUDGET_FACTOR,
+                    stream_table=None):
     """Binned raster path over whole tiles (one band).
 
     attrs: optional list over the channels of per-corner (v1, v2, v3) [T]
-    columns, as :func:`fused_pipeline` takes them. Returns (depth [H, W],
-    tri_id [H, W], G-buffer [H, W, A] or None).
+    columns, as :func:`fused_pipeline` takes them; stream_table as
+    :func:`fused_pipeline` takes it. Returns (depth [H, W], tri_id
+    [H, W], G-buffer [H, W, A] or None).
 
     The visibility kernel walks the bins; overflow triangles (unsafe,
     past kmax or the pair budget) are merged on top with the lex (depth,
@@ -666,8 +673,10 @@ def binned_pipeline(ps: fe.PlanarSetup, attrs=None, *, width: int,
     info = build_bins(ps, width=width, height=height, y_start=y_start,
                       tile_h=tile_h, tile_w=tile_w, chunk=chunk, kmax=kmax,
                       pair_budget_factor=pair_budget_factor)
-    table, a, poison = fe.stream_table_planar(
-        ps, fe.attribute_plane_cols(ps, attrs or []))
+    if stream_table is None:
+        stream_table = fe.stream_table_planar(
+            ps, fe.attribute_plane_cols(ps, attrs or []))
+    table, a, poison = stream_table
     rows = gather_stream(table, info.ids, poison).contiguous()
     geo = dict(width=width, height=height, y_start=y_start)
     depth, tri_id = binned_vis_kernel(rows, info.bin_start,

@@ -172,6 +172,15 @@ def planar_setup_from_rows(rows: torch.Tensor) -> PlanarSetup:
     return PlanarSetup(**cols)
 
 
+def _front_inputs(corners_c, transform):
+    """The kernel's inputs: [9, T] float32 corner rows and the [16]
+    row-major transform on their device."""
+    cols = torch.stack([c for corner in corners_c for c in corner]).to(
+        torch.float32).contiguous()
+    m = transform.to(dtype=torch.float32, device=cols.device).reshape(16)
+    return cols, m.contiguous()
+
+
 def planar_front(corners_c, transform, width: int, height: int, *,
                  cull_backfaces: bool = False, front_face_ccw: bool = True,
                  near_eps: float = CLIP_EPS) -> PlanarSetup:
@@ -182,12 +191,36 @@ def planar_front(corners_c, transform, width: int, height: int, *,
     tensors it runs the plain version (ops/frontend_kernel.py).
     """
     from .frontend_kernel import fe_kernel
-    cols = torch.stack([c for corner in corners_c for c in corner]).to(
-        torch.float32).contiguous()
-    m = transform.to(dtype=torch.float32, device=cols.device).reshape(16)
     return planar_setup_from_rows(fe_kernel(
-        cols, m.contiguous(), width, height, cull_backfaces=cull_backfaces,
-        front_face_ccw=front_face_ccw, near_eps=near_eps))
+        *_front_inputs(corners_c, transform), width, height,
+        cull_backfaces=cull_backfaces, front_face_ccw=front_face_ccw,
+        near_eps=near_eps))
+
+
+def planar_front_table(corners_c, transform, attrs, width: int, height: int,
+                       *, cull_backfaces: bool = False,
+                       front_face_ccw: bool = True,
+                       near_eps: float = CLIP_EPS):
+    """:func:`planar_front` and the stream table of ``attrs`` in one pass.
+
+    attrs: list over the channels of per-corner (v1, v2, v3) [T] columns,
+    as :func:`attribute_plane_cols` takes them. Returns (PlanarSetup,
+    table, n_channels, poison), the values of
+    ``stream_table_planar(ps, attribute_plane_cols(ps, attrs))`` beside
+    the setup. On CUDA tensors one launch of the front-end kernel writes
+    the setup's rows and the table; on CPU tensors the plain versions run
+    (ops/frontend_kernel.py).
+    """
+    from .frontend_kernel import fe_table_kernel
+    cols, m = _front_inputs(corners_c, transform)
+    vals = (torch.stack([v for chan in attrs for v in chan]).to(
+        torch.float32).contiguous() if attrs else
+        cols.new_empty((0, cols.shape[1])))
+    rows, table = fe_table_kernel(
+        cols, m, vals, width, height, cull_backfaces=cull_backfaces,
+        front_face_ccw=front_face_ccw, near_eps=near_eps)
+    return (planar_setup_from_rows(rows), table, len(attrs),
+            _stream_poison(table.shape[1], table.device))
 
 
 def to_setup(ps: PlanarSetup) -> TriangleSetup:
@@ -214,10 +247,11 @@ def attribute_plane_cols(ps: PlanarSetup, chan_vals):
 
 
 def _stream_poison(n_cols: int, device) -> torch.Tensor:
+    # Slices, so that each write is a fill a CUDA graph can capture.
     poison = torch.zeros(n_cols, dtype=torch.float32, device=device)
     poison[4:6] = -1.0           # c0 = c1 = -1: outside everywhere
-    poison[9] = float("inf")     # zc = +inf
-    poison[10] = -1.0            # id = -1
+    poison[9:10] = float("inf")  # zc = +inf
+    poison[10:11] = -1.0         # id = -1
     return poison
 
 

@@ -17,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from ..device import or_default
 from ..framebuffer import NO_TRIANGLE
 from .resolve import barycentrics_at_pixels, interpolate_attribute
 from .texture import (Texture, sample_texture,
@@ -35,6 +36,9 @@ class Light:
 
     @staticmethod
     def default(device=None) -> "Light":
+        """The reference's light, on the card unless ``device`` says
+        otherwise (device.py)."""
+        device = or_default(device)
         f = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
         return Light(direction=f([0.3, -0.5, 0.8]), color=f([1.0, 1.0, 1.0]),
                      ambient=f([0.15, 0.15, 0.15]),

@@ -21,9 +21,10 @@ from typing import Optional
 
 import torch
 
+from ..device import or_default
 from .texture_kernel import (LANES, sample_segments_windowed, windowed_count,
                              windowed_prep, windowed_supported,
-                             windowed_tables)
+                             windowed_texels)
 
 # Width of the row segments the texture tail samples in (JAX texture.py).
 COMPACT_SEG = LANES
@@ -43,25 +44,33 @@ TEX_WIN_AVG_BUDGET = float(os.environ.get("SR_TEX_WIN_AVG", "4"))
 class Texture:
     """An RGB(A) texture. data: [Th, Tw, C] float32 in [0, 1].
 
-    ``table`` is the bilinear quad table, built once at construction.
+    ``table`` is the bilinear quad table and ``texels`` the windowed
+    sampler's texel table (ops/texture_kernel.py ``windowed_texels``, for
+    C <= 4), each built once at construction from ``data``, so gradients
+    reach ``data`` through them.
     """
 
     data: torch.Tensor
     filter: str = "bilinear"   # "nearest" | "bilinear"
     wrap: str = "repeat"       # "repeat" | "clamp"
     table: Optional[torch.Tensor] = None
+    texels: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         if self.filter not in ("nearest", "bilinear"):
             raise NotImplementedError(
                 f"texture filter {self.filter!r} is not ported yet "
                 "(ROADMAP.md Queue 1 item 5)")
-        if self.table is None and self.filter == "bilinear":
-            self.table = _quad_table_from(self.data, self.wrap)
+        if self.filter == "bilinear":
+            if self.table is None:
+                self.table = _quad_table_from(self.data, self.wrap)
+            if self.texels is None and self.data.shape[-1] <= 4:
+                self.texels = windowed_texels(self.data, self.wrap)
 
     def to(self, device) -> "Texture":
+        mv = lambda t: None if t is None else t.to(device)
         return Texture(self.data.to(device), self.filter, self.wrap,
-                       None if self.table is None else self.table.to(device))
+                       mv(self.table), mv(self.texels))
 
 
 def _wrap_coords(i, n: int, mode: str):
@@ -164,9 +173,8 @@ def sample_texture_planes_compacted(tex: Texture, u, v, covered):
             return sample_texture_planes(tex, u, v)
     xa, dy, fx, fy, y0, nwin = windowed_prep(u_s, v_s, cov_s, th=th, tw=tw,
                                              wrap=tex.wrap)
-    planes = sample_segments_windowed(windowed_tables(tex.data, tex.wrap),
-                                      xa, dy, fx, fy, y0, nwin, th=th,
-                                      tw=tw, wrap=tex.wrap)
+    planes = sample_segments_windowed(tex.texels, xa, dy, fx, fy, y0, nwin,
+                                      c=c, th=th, tw=tw, wrap=tex.wrap)
     return [p.reshape(h, w) for p in planes.unbind(0)]
 
 
@@ -180,7 +188,9 @@ def sample_texture(tex: Texture, uv):
 
 def checkerboard(size: int = 256, tiles: int = 8, c0=(1.0, 1.0, 1.0),
                  c1=(0.2, 0.2, 0.2), device=None) -> Texture:
-    """Procedural checkerboard (test/demo texture)."""
+    """Procedural checkerboard (test/demo texture), on the card unless
+    ``device`` says otherwise (device.py)."""
+    device = or_default(device)
     ij = torch.arange(size, device=device) * tiles // size
     mask = (ij[:, None] + ij[None, :]) % 2
     c0 = torch.tensor(c0, dtype=torch.float32, device=device)

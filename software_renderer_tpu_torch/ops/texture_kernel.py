@@ -7,14 +7,16 @@ walks 8-row windows because Mosaic's per-lane gather lowers only at one
 [8, 128] vreg. That is the TPU's economics, not the function: since the
 window base ``y0`` is 8-aligned, a lane's texel row is ``(y0 + dy) mod
 th`` and its +1 row is the next row of the wrap-padded table. So
-csrc/sampler.cu (K7) runs one thread per lane, gathers the four corners
-of each channel straight from the padded tables (0.8 MB at 256x256x3,
-L2-resident) and writes 0 on a lane outside the segment's windows.
+csrc/sampler.cu (K7) runs one warp per segment, gathers each corner of a
+lane in one 16-byte load from the texture's texels (the padded table
+interleaved per texel, :func:`windowed_texels`, built once per texture by
+``Texture``; 1.1 MB at 256x256, L2-resident) and writes 0 on a lane
+outside the segment's windows.
 
 The index prep (:func:`windowed_prep`, :func:`windowed_count`,
 :func:`windowed_tables`) is plain torch, as it is XLA in JAX. The
-sampler's gradient is :func:`sample_segments_windowed_plain` through
-autograd: JAX's backward is XLA (``_windowed_vjp``), not a kernel.
+sampler's gradient is :func:`sampler_plain` through autograd: JAX's
+backward is XLA (``_windowed_vjp``), not a kernel.
 """
 
 from __future__ import annotations
@@ -185,39 +187,61 @@ def sample_segments_windowed_plain(tables, xa, dy, fx, fy, y0, nwin, *,
     return torch.stack(out)
 
 
-def sampler_kernel(tables, xa, dy, fx, fy, y0, nwin, *, th: int, tw: int,
-                   wrap: str):
+def windowed_texels(data, wrap: str):
+    """[th + WINH, tw, 4] float32: :func:`windowed_tables` interleaved per
+    texel, the channels padded with zeros to 4, so that K7 reads each
+    corner in one 16-byte load. data: [th, tw, C], C <= 4.
+    Differentiable in ``data``."""
+    tabs = windowed_tables(data, wrap)
+    return torch.nn.functional.pad(tabs.permute(1, 2, 0),
+                                   (0, 4 - tabs.shape[0])).contiguous()
+
+
+def sampler_plain(texels, xa, dy, fx, fy, y0, nwin, *, c: int, th: int,
+                  tw: int, wrap: str):
+    """Plain version of K7 on the texels of :func:`windowed_texels`:
+    :func:`sample_segments_windowed_plain` of their first ``c`` channels.
+    Returns [c, cap, 128] float32."""
+    return sample_segments_windowed_plain(
+        texels[..., :c].permute(2, 0, 1), xa, dy, fx, fy, y0, nwin, th=th,
+        tw=tw, wrap=wrap)
+
+
+def sampler_kernel(texels, xa, dy, fx, fy, y0, nwin, *, c: int, th: int,
+                   tw: int, wrap: str):
     """Launch K7 (csrc/sampler.cu) on CUDA tensors: the forward of
-    :func:`sample_segments_windowed` with no autograd. Shapes and types
-    as :func:`sample_segments_windowed_plain`; returns [C, cap, 128]."""
-    dev = tables.device
-    _cuda.require(tables, torch.float32, "tables", ndim=3)
-    c = tables.shape[0]
-    if tuple(tables.shape[1:]) != (th + WINH, tw):
-        raise ValueError(f"tables must be [C, {th + WINH}, {tw}], got "
-                         f"{tuple(tables.shape)}")
+    :func:`sample_segments_windowed` with no autograd. texels: [th + WINH,
+    tw, 4] float32; the rest as :func:`sampler_plain` takes them, every
+    array contiguous and 16-byte aligned (the kernel's vector loads).
+    Returns [c, cap, 128]."""
+    dev = texels.device
+    _cuda.require(texels, torch.float32, "texels", shape=(th + WINH, tw, 4),
+                  align=16)
+    if not 1 <= c <= 4:
+        raise ValueError(f"c must be 1 to 4, got {c}")
     if wrap not in ("repeat", "clamp"):
         raise ValueError(f"unknown wrap mode {wrap!r}")
     cap = xa.shape[0]
     for name, t, dtype in (("xa", xa, torch.int32), ("dy", dy, torch.int32),
                            ("fx", fx, torch.float32),
                            ("fy", fy, torch.float32)):
-        _cuda.require(t, dtype, name, device=dev, shape=(cap, LANES))
+        _cuda.require(t, dtype, name, device=dev, shape=(cap, LANES),
+                      align=16)
     _cuda.require(y0, torch.int32, "y0", device=dev, shape=(cap,))
     _cuda.require(nwin, torch.int32, "nwin", device=dev, shape=(cap,))
     out = torch.empty((c, cap, LANES), dtype=torch.float32, device=dev)
     lib = _cuda.lib()
     _cuda.launches["sampler"] += 1
     _cuda.check(lib.sr_sampler(
-        tables.data_ptr(), c, th, tw, int(wrap == "repeat"), xa.data_ptr(),
+        texels.data_ptr(), c, th, tw, int(wrap == "repeat"), xa.data_ptr(),
         dy.data_ptr(), fx.data_ptr(), fy.data_ptr(), y0.data_ptr(),
-        nwin.data_ptr(), cap, out.data_ptr(), _cuda.stream_of(tables)))
+        nwin.data_ptr(), cap, out.data_ptr(), _cuda.stream_of(texels)))
     return out
 
 
 class _WindowedSampler(torch.autograd.Function):
     """K7 forward; JAX's backward (texture_kernel.py:362-369): autograd
-    through the plain version, with respect to the tables and fx/fy.
+    through the plain version, with respect to the texels and fx/fy.
 
     A lane outside every window outputs the constant 0, and a lane whose
     cotangent is 0 in every channel adds nothing, so the backward runs
@@ -228,29 +252,28 @@ class _WindowedSampler(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, tables, fx, fy, xa, dy, y0, nwin, th, tw, wrap):
-        ctx.save_for_backward(tables, fx, fy, xa, dy, y0, nwin)
-        ctx.geom = dict(th=th, tw=tw, wrap=wrap)
-        return sampler_kernel(tables, xa, dy, fx, fy, y0, nwin, **ctx.geom)
+    def forward(ctx, texels, fx, fy, xa, dy, y0, nwin, c, th, tw, wrap):
+        ctx.save_for_backward(texels, fx, fy, xa, dy, y0, nwin)
+        ctx.geom = dict(c=c, th=th, tw=tw, wrap=wrap)
+        return sampler_kernel(texels, xa, dy, fx, fy, y0, nwin, **ctx.geom)
 
     @staticmethod
     def backward(ctx, grad):
-        tables, fx, fy, xa, dy, y0, nwin = ctx.saved_tensors
+        texels, fx, fy, xa, dy, y0, nwin = ctx.saved_tensors
         need = ctx.needs_input_grad[:3]
-        g_tab = g_fx = g_fy = None
+        g_tex = g_fx = g_fy = None
         if any(need):
             seg, lane = torch.nonzero(
                 (dy >= 0) & (dy < WIN_STRIDE * nwin[:, None])
                 & (grad != 0).any(dim=0), as_tuple=True)
             lanes = lambda t: t[seg, lane][:, None]         # [N, 1]
-            tab = tables.detach().requires_grad_(need[0])
+            tex = texels.detach().requires_grad_(need[0])
             fxs = lanes(fx).requires_grad_(need[1])
             fys = lanes(fy).requires_grad_(need[2])
-            wanted = [t for t in (tab, fxs, fys) if t.requires_grad]
+            wanted = [t for t in (tex, fxs, fys) if t.requires_grad]
             with torch.enable_grad():
-                out = sample_segments_windowed_plain(
-                    tab, lanes(xa), lanes(dy), fxs, fys, y0[seg], nwin[seg],
-                    **ctx.geom)
+                out = sampler_plain(tex, lanes(xa), lanes(dy), fxs, fys,
+                                    y0[seg], nwin[seg], **ctx.geom)
                 grads = iter(torch.autograd.grad(
                     out, wanted, grad[:, seg, lane][..., None]))
 
@@ -259,28 +282,27 @@ class _WindowedSampler(torch.autograd.Function):
                 out[seg, lane] = g[:, 0]
                 return out
 
-            g_tab = next(grads) if need[0] else None
+            g_tex = next(grads) if need[0] else None
             g_fx = full(next(grads)) if need[1] else None
             g_fy = full(next(grads)) if need[2] else None
-        return (g_tab, g_fx, g_fy, None, None, None, None, None, None, None)
+        return (g_tex, g_fx, g_fy) + (None,) * 8
 
 
-def sample_segments_windowed(tables, xa, dy, fx, fy, y0, nwin, *, th: int,
-                             tw: int, wrap: str):
+def sample_segments_windowed(texels, xa, dy, fx, fy, y0, nwin, *, c: int,
+                             th: int, tw: int, wrap: str):
     """Bilinear-sample 1x128 segments through their texel windows.
 
-    tables: [C, th + WINH, tw] float32 (:func:`windowed_tables`); xa, dy,
-    fx, fy, y0, nwin as :func:`windowed_prep` returns them. Returns
-    [C, cap, 128] float32: covered lanes equal sample_texture_planes;
-    lanes outside every window are 0. Differentiable in ``tables``,
-    ``fx`` and ``fy``.
+    texels: [th + WINH, tw, 4] float32 (:func:`windowed_texels`, which
+    ``Texture`` holds); c: the texture's channel count; xa, dy, fx, fy,
+    y0, nwin as :func:`windowed_prep` returns them. Returns [c, cap, 128]
+    float32: covered lanes equal sample_texture_planes; lanes outside
+    every window are 0. Differentiable in ``texels``, ``fx`` and ``fy``.
 
-    CPU tensors run :func:`sample_segments_windowed_plain`; CUDA tensors
-    launch K7 through an autograd Function whose backward is the plain
-    version's.
+    CPU tensors run :func:`sampler_plain`; CUDA tensors launch K7 through
+    an autograd Function whose backward is the plain version's.
     """
-    if tables.device.type == "cpu":
-        return sample_segments_windowed_plain(tables, xa, dy, fx, fy, y0,
-                                              nwin, th=th, tw=tw, wrap=wrap)
-    return _WindowedSampler.apply(tables, fx, fy, xa, dy, y0, nwin, th, tw,
-                                  wrap)
+    if texels.device.type == "cpu":
+        return sampler_plain(texels, xa, dy, fx, fy, y0, nwin, c=c, th=th,
+                             tw=tw, wrap=wrap)
+    return _WindowedSampler.apply(texels, fx, fy, xa, dy, y0, nwin, c, th,
+                                  tw, wrap)

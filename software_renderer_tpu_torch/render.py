@@ -3,7 +3,8 @@
 Every frame starts with the planar front-end (ops/frontend.py, CUDA
 kernel on the card). Then, by backend:
 
-* ``auto`` / ``binned`` (the main path): the banded bin build
+* ``auto`` / ``binned`` (the main path): the front-end writes the stream
+  table with the setup (``planar_front_table``), then the banded bin build
   (ops/binning.py), the fused raster + shade kernel (with the overflow
   merge kernels on spill frames), then the texture sample and combine
   (ops/shading.py finish_fused). A shading plan with no attribute
@@ -218,15 +219,17 @@ def render_triangles(rp: RenderPass, backend: str = "auto") -> Framebuffer:
 
     def geometry(*xs):
         # xs: 9 corner columns, the transform, 3 columns per attribute
-        # channel, the shading row.
-        ps = fe.planar_front((xs[0:3], xs[3:6], xs[6:9]), xs[9], rp.width,
-                             rp.height, cull_backfaces=rp.cull_backfaces)
+        # channel, the shading row. One front-end launch writes the setup
+        # and the stream table.
+        cols = [tuple(xs[10 + 3 * i:13 + 3 * i]) for i in range(n_attr)]
+        ps, *table = fe.planar_front_table(
+            (xs[0:3], xs[3:6], xs[6:9]), xs[9], cols, rp.width, rp.height,
+            cull_backfaces=rp.cull_backfaces)
         kw = dict(width=rp.width, height=rp.height,
-                  pair_budget_factor=budget)
+                  pair_budget_factor=budget, stream_table=table)
         if not chans:
             return binned_pipeline(ps, None, **kw)[:2]
-        cols = [tuple(xs[10 + 3 * i:13 + 3 * i]) for i in range(n_attr)]
-        return fused_pipeline(ps, cols, xs[-1], chans=chans,
+        return fused_pipeline(ps, None, xs[-1], chans=chans,
                               has_light=has_light, has_texture=has_texture,
                               **kw)
 

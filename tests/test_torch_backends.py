@@ -274,12 +274,17 @@ def test_new_kernel_wrappers_run_plain_on_cpu():
     lambda: load_obj(str(tscenes.TEAPOT_OBJ)),
     lambda: convert.render_pass_from_numpy(
         convert.arrays_of(jscenes.config1_flat_cube(0.3, 64, 64))),
-    lambda: convert.triangle_setup_from_numpy(_port_setup())],
-    ids=["scene", "config4", "load_obj", "render_pass", "setup"])
+    lambda: convert.triangle_setup_from_numpy(_port_setup()),
+    lambda: srt.mesh_from_numpy(np.zeros((3, 3)), np.arange(3)),
+    lambda: srt.shapes.box(),
+    lambda: srt.checkerboard(8, 2),
+    lambda: srt.Light.default()],
+    ids=["scene", "config4", "load_obj", "render_pass", "setup",
+         "mesh_from_numpy", "shape", "checkerboard", "light"])
 def test_scenes_default_to_the_card(monkeypatch, build):
-    """With no card, a scene, OBJ or convert function given no device
-    raises and names the way to ask for the CPU; nothing falls back
-    quietly."""
+    """With no card, a scene, mesh, texture, light, OBJ or convert
+    function given no device raises and names the way to ask for the
+    CPU; nothing falls back quietly."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         build()

@@ -25,7 +25,8 @@ from software_renderer_tpu_torch.ops import binning as tb
 from software_renderer_tpu_torch.ops import frontend as fe
 from software_renderer_tpu_torch.ops import texture as ttex
 from software_renderer_tpu_torch.ops import texture_kernel as ttk
-from software_renderer_tpu_torch.ops.frontend_kernel import fe_kernel, fe_plain
+from software_renderer_tpu_torch.ops.frontend_kernel import (
+    fe_kernel, fe_plain, fe_table_kernel, fe_table_plain)
 from software_renderer_tpu_torch.ops.rasterize_kernel import (
     _poison_row, visibility_kernel, visibility_merge_kernel,
     visibility_merge_plain, visibility_plain)
@@ -63,6 +64,78 @@ def test_fe_kernel_matches_plain(cull):
     torch.cuda.synchronize()
     assert _equal(k, p), [fe.FE_ROWS[i] for i in range(24)
                           if not _equal(k[i], p[i])]
+
+
+def _fe_table_case(t, n_chan, seed=9):
+    """[9, t] corner rows and [3 n_chan, t] attribute rows on the card,
+    with triangles 0-3 degenerate, offscreen, behind the near plane and
+    with a NaN corner (w = z + 1), and a NaN attribute on triangle 4."""
+    g = torch.Generator().manual_seed(seed)
+    cols = torch.rand((9, t), generator=g) * 2.4 - 1.2
+    cols[2::3] += 1.0  # z in (-0.2, 2.2): some corners behind the eye
+    cols[:, 0] = cols[:3, 0].repeat(3)           # three equal corners
+    cols[0::3, 1] = 5.0                           # x far right of the frame
+    cols[2::3, 2] = -1.5                          # w = -0.5 at every corner
+    cols[4, 3] = float("nan")
+    cols[:, 4] = torch.tensor([-0.5, -0.5, 0.5, 0.5, 0.5, 0.5, 0.5, -0.5,
+                               0.5])              # a valid, front-facing one
+    attrs = torch.rand((3 * n_chan, t), generator=g) * 2.0 - 1.0
+    if n_chan:
+        attrs[3 * n_chan - 2, 4] = float("nan")
+    m = torch.eye(4)
+    m[3, 2] = 1.0
+    return cols.cuda(), m.reshape(16).cuda(), attrs.cuda()
+
+
+@pytest.mark.parametrize("t", [5000, 77])
+@pytest.mark.parametrize("n_chan", [0, 2, 8, 9])
+@pytest.mark.parametrize("cull", [False, True])
+def test_fe_table_kernel_matches_plain(cull, n_chan, t):
+    """K1 with the stream table: rows and table bit-equal to the plain
+    composition; invalid triangles (degenerate, offscreen, behind the
+    near plane, NaN corner) get the poison row; a NaN attribute of a valid
+    triangle gives the plain version's NaN planes."""
+    cols, m16, attrs = _fe_table_case(t, n_chan)
+    _cuda.reset_launches()
+    rows, table = fe_table_kernel(cols, m16, attrs, 1920, 1080,
+                                  cull_backfaces=cull)
+    assert _cuda.launches["fe"] == 1
+    p_rows, p_table = fe_table_plain(cols, m16, attrs, 1920, 1080,
+                                     cull_backfaces=cull)
+    torch.cuda.synchronize()
+    assert table.shape == (t, 11 + 3 * n_chan)
+    assert _equal(rows, p_rows), [fe.FE_ROWS[i] for i in range(24)
+                                  if not _equal(rows[i], p_rows[i])]
+    assert _equal(table, p_table)
+    assert _equal(rows, fe_kernel(cols, m16, 1920, 1080,
+                                  cull_backfaces=cull))
+    valid = rows[fe.FE_ROWS.index("valid")] != 0
+    assert not bool(valid[:4].any()) and bool(valid[4])
+    assert 0 < int(valid.sum()) < t
+    poison = fe._stream_poison(11 + 3 * n_chan, "cuda")
+    assert _equal(table[~valid], poison.expand(int((~valid).sum()), -1))
+    if n_chan:
+        assert bool(torch.isnan(table[4, 11 + 3 * (n_chan - 1):]).all())
+        assert not bool(torch.isnan(table[4, :11 + 3 * (n_chan - 1)]).any())
+
+
+def test_planar_front_table_feeds_the_pipeline():
+    """render's main path through planar_front_table gives the frame of
+    fused_pipeline building its own table."""
+    rp = scenes.config4_many_objects(0.0, width=320, height=192,
+                                     triangles=3000, device="cuda")
+    ps, chans, attrs, prm, lit, tex = triangle_inputs(rp)
+    kw = dict(width=320, height=192, chans=chans, has_light=lit,
+              has_texture=tex, pair_budget_factor=0.85)
+    tris = rp.mesh.triangles().long()
+    ps2, *table = fe.planar_front_table(
+        fe.corner_cols(rp.mesh.positions[tris]), rp.transform, attrs, 320,
+        192, cull_backfaces=True)
+    want = tb.fused_pipeline(ps, attrs, prm, **kw)
+    got = tb.fused_pipeline(ps2, None, prm, stream_table=table, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert _equal(a, b)
 
 
 @pytest.mark.parametrize("bands", [1, 4])
@@ -454,6 +527,16 @@ def test_wrappers_raise_on_bad_input():
     with pytest.raises(ValueError):
         fe_kernel(torch.zeros((9, 8), device="cuda")[:, ::2],
                   torch.zeros(16, device="cuda"), 8, 8)
+    cols, m16 = torch.zeros((9, 8), device="cuda"), torch.eye(4).reshape(
+        16).cuda()
+    for attrs, err in ((torch.zeros((6, 8), device="cuda",
+                                    dtype=torch.float64), TypeError),
+                       (torch.zeros((7, 8), device="cuda"), ValueError),
+                       (torch.zeros((6, 9), device="cuda"), ValueError),
+                       (torch.zeros((30, 8), device="cuda"), ValueError),
+                       (torch.zeros((6, 8)), ValueError)):
+        with pytest.raises(err):
+            fe_table_kernel(cols, m16, attrs, 8, 8)
     with pytest.raises(ValueError):
         visibility_kernel(torch.zeros((8, 11), device="cuda"), width=8,
                           height=8)
@@ -501,38 +584,46 @@ def test_bin_walk_raises_on_bad_bbox():
             tb.fused_kernel(rows, starts, params, bbox=bad, **shade, **geo)
 
 
-def _sampler_case(th, tw, c, wrap, seed=3, cap=64):
-    """Windowed-sampler inputs on the card: clustered, spread and seam
-    segments, garbage UVs on uncovered lanes, one empty segment."""
+def _sampler_case(th, tw, c, wrap, seed=3, cap=64, frame="mixed"):
+    """Windowed-sampler inputs on the card. ``mixed``: clustered, spread
+    and seam segments, garbage UVs on uncovered lanes, one empty segment;
+    ``empty``: no covered lane (every nwin 0); ``seam``: every segment
+    straddles the v seam."""
     g = torch.Generator().manual_seed(seed)
     data = torch.rand((th, tw, c), generator=g)
     v0 = torch.rand((cap, 1), generator=g)
     spread = torch.tensor([0.01, 0.08, 0.9])[torch.randint(
         0, 3, (cap, 1), generator=g)]
+    if frame == "seam":
+        v0 = 1.0 - 0.02 * torch.rand((cap, 1), generator=g)
+        spread = torch.full((cap, 1), 0.04)
     v = (v0 + torch.rand((cap, 128), generator=g) * spread) % 1.0
     u = torch.rand((cap, 128), generator=g)
-    cov = torch.rand((cap, 128), generator=g) < 0.8
+    cov = torch.rand((cap, 128), generator=g) < (0.0 if frame == "empty"
+                                                 else 0.8)
     cov[0] = False
     u = torch.where(cov, u, 1e30)
     v = torch.where(cov, v, -3e7)
+    texels = ttk.windowed_texels(data.cuda(), wrap)
     tabs = ttk.windowed_tables(data.cuda(), wrap)
     prep = ttk.windowed_prep(u.cuda(), v.cuda(), cov.cuda(), th=th, tw=tw,
                              wrap=wrap)
-    return data, u, v, cov, tabs, prep
+    return data, u, v, cov, texels, tabs, prep
 
 
 @pytest.mark.parametrize("th,tw", [(128, 128), (256, 256), (64, 512)])
 @pytest.mark.parametrize("c", [1, 3])
 @pytest.mark.parametrize("wrap", ["repeat", "clamp"])
 def test_sampler_kernel_matches_plain(th, tw, c, wrap):
-    data, u, v, cov, tabs, prep = _sampler_case(th, tw, c, wrap)
+    data, u, v, cov, texels, tabs, prep = _sampler_case(th, tw, c, wrap)
     geo = dict(th=th, tw=tw, wrap=wrap)
     _cuda.reset_launches()
-    k = ttk.sample_segments_windowed(tabs, *prep, **geo)
-    p = ttk.sample_segments_windowed_plain(tabs, *prep, **geo)
+    k = ttk.sample_segments_windowed(texels, *prep, c=c, **geo)
+    p = ttk.sampler_plain(texels, *prep, c=c, **geo)
     torch.cuda.synchronize()
     assert _cuda.launches["sampler"] == 1
     assert _equal(k, p)
+    assert _equal(k, ttk.sample_segments_windowed_plain(tabs, *prep, **geo))
     want = ttex.sample_texture_planes(
         ttex.Texture(data=data.cuda(), wrap=wrap), u.cuda(), v.cuda())
     covc = cov.cuda()
@@ -540,17 +631,52 @@ def test_sampler_kernel_matches_plain(th, tw, c, wrap):
         assert _equal(k[ch][covc], want[ch][covc])
 
 
+@pytest.mark.parametrize("frame", ["empty", "seam", "garbage"])
+@pytest.mark.parametrize("c", [2, 4])
+def test_sampler_kernel_edge_frames(frame, c):
+    """K7 bit-equal to its plain version on a frame with no window, on
+    one whose segments all straddle the v seam, and on hand-made indices
+    the prep never makes (y0 outside [0, th), nwin past th / 8, dy and xa
+    anywhere), where the kernel takes the remainder path."""
+    th, tw, wrap = 64, 128, "repeat"
+    _, _, _, cov, texels, tabs, prep = _sampler_case(
+        th, tw, c, wrap, frame="mixed" if frame == "garbage" else frame)
+    xa, dy, fx, fy, y0, nwin = prep
+    if frame == "garbage":
+        g = torch.Generator().manual_seed(5)
+        cap = xa.shape[0]
+        dy = torch.randint(-20, 3 * th, (cap, 128), generator=g,
+                           dtype=torch.int32).cuda()
+        xa = torch.randint(-9, tw + 9, (cap, 128), generator=g,
+                           dtype=torch.int32).cuda()
+        y0 = torch.randint(-2 * th, 2 * th, (cap,), generator=g,
+                           dtype=torch.int32).cuda()
+        nwin = torch.randint(0, th // 4, (cap,), generator=g,
+                             dtype=torch.int32).cuda()
+    geo = dict(th=th, tw=tw, wrap=wrap)
+    k = ttk.sampler_kernel(texels, xa, dy, fx, fy, y0, nwin, c=c, **geo)
+    p = ttk.sample_segments_windowed_plain(tabs, xa, dy, fx, fy, y0, nwin,
+                                           **geo)
+    torch.cuda.synchronize()
+    assert _equal(k, p)
+    if frame == "empty":
+        assert not bool(nwin.any()) and not bool(k.any())
+    else:
+        assert bool(k.any())
+    if frame == "seam":
+        assert bool((nwin == 2).any())
+
+
 def test_sampler_backward_matches_plain_autograd():
     th, tw, c, wrap = 256, 256, 3, "repeat"
-    _, _, _, cov, tabs, (xa, dy, fx, fy, y0, nwin) = _sampler_case(
+    _, _, _, cov, texels, _, (xa, dy, fx, fy, y0, nwin) = _sampler_case(
         th, tw, c, wrap)
-    geo = dict(th=th, tw=tw, wrap=wrap)
+    geo = dict(c=c, th=th, tw=tw, wrap=wrap)
     cot = torch.randn((c,) + tuple(xa.shape),
                       generator=torch.Generator().manual_seed(4)).cuda()
     grads = []
-    for fn in (ttk.sample_segments_windowed,
-               ttk.sample_segments_windowed_plain):
-        args = [t.clone().requires_grad_(True) for t in (tabs, fx, fy)]
+    for fn in (ttk.sample_segments_windowed, ttk.sampler_plain):
+        args = [t.clone().requires_grad_(True) for t in (texels, fx, fy)]
         out = fn(args[0], xa, dy, args[1], args[2], y0, nwin, **geo)
         grads.append(torch.autograd.grad(out, args, cot))
     torch.cuda.synchronize()
@@ -651,16 +777,24 @@ def test_window_lookup_clamps_outside_window_and_table():
 
 
 def test_texture_wrappers_raise_on_bad_input():
-    _, _, _, _, tabs, prep = _sampler_case(128, 128, 1, "repeat", cap=4)
-    geo = dict(th=128, tw=128, wrap="repeat")
+    _, _, _, _, texels, tabs, prep = _sampler_case(128, 128, 1, "repeat",
+                                                   cap=4)
+    geo = dict(c=1, th=128, tw=128, wrap="repeat")
     with pytest.raises(TypeError):
-        ttk.sampler_kernel(tabs.double(), *prep, **geo)
+        ttk.sampler_kernel(texels.double(), *prep, **geo)
     with pytest.raises(ValueError):     # the table lacks its padded rows
-        ttk.sampler_kernel(tabs[:, :128].contiguous(), *prep, **geo)
+        ttk.sampler_kernel(texels[:128].contiguous(), *prep, **geo)
+    with pytest.raises(ValueError):     # planar tables, not texels
+        ttk.sampler_kernel(tabs, *prep, **geo)
+    with pytest.raises(ValueError):     # five channels
+        ttk.sampler_kernel(texels, *prep, **dict(geo, c=5))
     with pytest.raises(ValueError):     # xa on the CPU
-        ttk.sampler_kernel(tabs, prep[0].cpu(), *prep[1:], **geo)
+        ttk.sampler_kernel(texels, prep[0].cpu(), *prep[1:], **geo)
     with pytest.raises(ValueError):     # dy of the wrong shape
-        ttk.sampler_kernel(tabs, prep[0], prep[1][:2], *prep[2:], **geo)
+        ttk.sampler_kernel(texels, prep[0], prep[1][:2], *prep[2:], **geo)
+    fx = torch.zeros(4 * 128 + 1, device="cuda")[1:].view(4, 128)
+    with pytest.raises(ValueError):     # fx not 16-byte aligned
+        ttk.sampler_kernel(texels, *prep[:2], fx, *prep[3:], **geo)
     x = torch.zeros((8, 128), device="cuda")
     idx = torch.zeros((8, 128), dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError):

@@ -122,6 +122,69 @@ def test_stream_table_and_records_match_jax():
     np.testing.assert_array_equal(rj, rt)
 
 
+@pytest.mark.parametrize("cull,n_chan", [(False, 5), (True, 5), (False, 0)])
+def test_planar_front_table_matches_jax(cull, n_chan):
+    """planar_front_table on the CPU (no launch) against JAX planar_front
+    + stream_table_planar(attribute_plane_cols) (the XLA path, T < 4096):
+    the setup within the front-end contraction class, ids, validity and
+    poison rows exact, the raster columns the setup's own, the planes
+    within the chain's ulps plus the propagated edge-constant difference;
+    a NaN attribute of a valid triangle gives NaN planes in both."""
+    corners, m, w, h = _random_scene(seed=11)
+    rng = np.random.default_rng(11)
+    vals = rng.uniform(-1, 1, size=(97, 3, n_chan)).astype(np.float32)
+    ps_j = jfe.planar_front(jfe.corner_cols(jnp.asarray(corners)),
+                            jnp.asarray(m), w, h, cull_backfaces=cull,
+                            pallas=False)
+    first_valid = int(np.argmax(np.asarray(ps_j.valid)))
+    if n_chan:
+        vals[first_valid, 1, n_chan - 1] = np.nan
+    tj, aj, pj = (np.asarray(x) if i != 1 else x for i, x in enumerate(
+        jfe.stream_table_planar(ps_j, jfe.attribute_plane_cols(
+            ps_j, jfe.attr_corner_cols(jnp.asarray(vals))))))
+    _cuda.reset_launches()
+    ps_t, tt, at, pt = tfe.planar_front_table(
+        tfe.corner_cols(torch.from_numpy(corners)), torch.from_numpy(m),
+        tfe.attr_corner_cols(torch.from_numpy(vals)), w, h,
+        cull_backfaces=cull)
+    assert all(v == 0 for v in _cuda.launches.values()), _cuda.launches
+    assert_fe_contraction_class(ps_j, _numpy_fields(ps_t), corners, m,
+                                width=w, height=h,
+                                context=f"planar_front_table cull={cull}")
+    tt, pt = tt.numpy(), pt.numpy()
+    assert aj == at == n_chan and tt.shape == tj.shape == (97, 11 + 3 * n_chan)
+    np.testing.assert_array_equal(pt, pj)
+    valid = ps_t.valid.numpy()
+    assert valid.any() and not valid.all()
+    np.testing.assert_array_equal(tt[:, 10], tj[:, 10])
+    np.testing.assert_array_equal(tt[~valid], tj[~valid])
+    np.testing.assert_array_equal(tt[~valid], np.broadcast_to(
+        pt, tt[~valid].shape))
+    fields = ("a0", "a1", "b0", "b1", "c0", "c1", "abs_d", "zx", "zy", "zc")
+    np.testing.assert_array_equal(tt[valid, :10], np.stack(
+        [getattr(ps_t, f).numpy()[valid] for f in fields], 1))
+    # Planes: 8 ulps of the chain's magnitude (times inv_area), plus the
+    # edge constants' difference through the const plane.
+    coef = np.abs(np.stack([np.asarray(getattr(ps_j, f)) for f in (
+        "a0", "a1", "a2", "b0", "b1", "b2", "c0", "c1", "c2")]).reshape(
+        3, 3, -1).astype(np.float64))                 # [row, corner, T]
+    dc = np.abs(np.stack([getattr(ps_t, f).numpy() for f in (
+        "c0", "c1", "c2")]).astype(np.float64) - coef[2])
+    inv = np.asarray(ps_j.inv_area, np.float64)
+    for ch in range(n_chan):
+        v = np.abs(vals[:, :, ch].astype(np.float64))
+        mag = np.einsum("rct,tc->rt", coef, v)
+        tol = 8 * 2.0 ** -23 * mag * inv + 1e-30
+        tol[2] += np.einsum("ct,tc->t", dc, v) * inv
+        got = tt[valid, 11 + 3 * ch:14 + 3 * ch].T
+        want = tj[valid, 11 + 3 * ch:14 + 3 * ch].T
+        nan = np.isnan(want)
+        np.testing.assert_array_equal(np.isnan(got), nan)
+        assert nan.any() == (ch == n_chan - 1), ch
+        ok = np.abs(got - want) <= tol[:, valid]
+        assert (ok | nan).all(), ch
+
+
 def test_cpu_front_end_runs_plain_without_launches():
     _cuda.reset_launches()
     corners, m, w, h = _random_scene(seed=2)

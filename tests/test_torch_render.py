@@ -63,7 +63,8 @@ def test_render_matches_jax_reference(name):
 
 def test_config4_mesh_equals_jax():
     mj = jshapes.many_objects_scene(target_triangles=100_000)
-    mt = tshapes.many_objects_scene(target_triangles=100_000)
+    mt = tshapes.many_objects_scene(target_triangles=100_000,
+                                    device="cpu")
     for f in ("positions", "indices", "colors", "normals", "uvs"):
         a = np.asarray(getattr(mj, f))
         b = getattr(mt, f).numpy()

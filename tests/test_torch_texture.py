@@ -173,8 +173,8 @@ def test_plain_sampler_matches_jax(th, tw, c, wrap):
         *map(jnp.asarray, (data, u, v, cov)), th=th, tw=tw, wrap=wrap))
     xa, dy, fx, fy, y0, nwin = _port_prep(u, v, cov, th, tw, wrap)
     got = ttk.sample_segments_windowed(
-        ttk.windowed_tables(torch.from_numpy(data), wrap), xa, dy, fx, fy,
-        y0, nwin, th=th, tw=tw, wrap=wrap).numpy()
+        ttk.windowed_texels(torch.from_numpy(data), wrap), xa, dy, fx, fy,
+        y0, nwin, c=c, th=th, tw=tw, wrap=wrap).numpy()
     inside = ((dy >= 0) & (dy < ttk.WIN_STRIDE * nwin[:, None])).numpy()
     assert inside[cov].all() and not inside.all()
     for ch in range(c):
@@ -198,8 +198,8 @@ def test_plain_sampler_grads_match_jax_vjp():
     tabs.requires_grad_(True)
     fx.requires_grad_(True)
     fy.requires_grad_(True)
-    out = ttk.sample_segments_windowed(tabs, xa, dy, fx, fy, y0, nwin,
-                                       th=th, tw=tw, wrap=wrap)
+    out = ttk.sample_segments_windowed_plain(tabs, xa, dy, fx, fy, y0,
+                                             nwin, th=th, tw=tw, wrap=wrap)
     g_tab, g_fx, g_fy = torch.autograd.grad(out, (tabs, fx, fy),
                                             torch.from_numpy(cot))
     np.testing.assert_allclose(g_tab.numpy(), np.asarray(jg_tab), rtol=1e-5,
@@ -219,17 +219,17 @@ def test_sampler_function_backward_matches_plain(monkeypatch):
     th, tw, c, wrap = 128, 128, 3, "repeat"
     data, u, v, cov = _case(9, 16, th=th, tw=tw, c=c)
     xa, dy, fx, fy, y0, nwin = _port_prep(u, v, cov, th, tw, wrap)
-    tabs = ttk.windowed_tables(torch.from_numpy(data), wrap)
+    texels = ttk.windowed_texels(torch.from_numpy(data), wrap)
     cot = torch.from_numpy(np.random.default_rng(10).standard_normal(
         (c, 16, 128)).astype(np.float32)) * torch.from_numpy(cov)
-    monkeypatch.setattr(ttk, "sampler_kernel",
-                        ttk.sample_segments_windowed_plain)
+    monkeypatch.setattr(ttk, "sampler_kernel", ttk.sampler_plain)
     grads = []
     for fn in (lambda *a: ttk._WindowedSampler.apply(
-                   a[0], a[3], a[4], a[1], a[2], a[5], a[6], th, tw, wrap),
-               functools.partial(ttk.sample_segments_windowed_plain, th=th,
-                                 tw=tw, wrap=wrap)):
-        args = [t.clone().requires_grad_(True) for t in (tabs, fx, fy)]
+                   a[0], a[3], a[4], a[1], a[2], a[5], a[6], c, th, tw,
+                   wrap),
+               functools.partial(ttk.sampler_plain, c=c, th=th, tw=tw,
+                                 wrap=wrap)):
+        args = [t.clone().requires_grad_(True) for t in (texels, fx, fy)]
         out = fn(args[0], xa, dy, args[1], args[2], y0, nwin)
         grads.append(torch.autograd.grad(out, args, cot))
     for gk, gp in zip(*grads):
