@@ -45,9 +45,25 @@ the script exits non-zero without printing a result:
    loss falls at every step, K7 launches 4 times a step in "1", and the
    two modes' first steps agree;
 10. the gather probe (K8) through its entry point, with the counters
-   reset just before it.
+   reset just before it;
+11. the camera path at full size: config 4 (99,936 triangles, 1920x1080)
+   under a perspective camera inside the object cloud
+   (``scenes.config4_camera``) at t = 0, 0.5, 1, 1.5, 2 s, each frame with
+   over 1,000 triangles across the eye plane, through render() with (a)
+   clip_near + perspective_correct on ``auto`` in SR_TEX_WINDOWED "0"
+   and "1", (b) perspective_correct alone (K1's perspective flag), (c)
+   clip + perspective on ``pallas``, (d) clip + flat shading (K5), each
+   with the counters reset just before it and read just after; per frame
+   the straddling and clipped triangles, the bins' pairs and spills; per
+   path ms/frame (CUDA events) and device ms and kernels per frame (a
+   profile); (depth, id) bit-equal across K2 and K3' on every frame,
+   every color finite, and the case-0 no-op: config 4's own frame
+   (every corner in front) with and without the clip bit for bit.
 
-Phase 3 also holds K3' on large triangles (config 2's cube at 1920x1080)
+Phase 3 also holds K1 with its perspective flag and K2's perspective
+plan (static, and seeded from K3 and K4 at 9 channels on the camera
+frame's own spills) against their plain versions at the camera path's
+t = 0 shapes, with their times and bounds. It holds K3' on large triangles (config 2's cube at 1920x1080)
 against its plain version, K7 (at config-4 frame-0 shapes, against its
 plain version and the quad-table sampler) and K8 (at the probe's shapes)
 with their times, bounds and library times; it times the seeded K2 on the
@@ -76,6 +92,7 @@ import torch
 from software_renderer_tpu_torch import _cuda, render
 from software_renderer_tpu_torch.models import scenes
 from software_renderer_tpu_torch.ops import binning as tb
+from software_renderer_tpu_torch.ops import clip as tclip
 from software_renderer_tpu_torch.ops import frontend as fe
 from software_renderer_tpu_torch.ops import texture as ttex
 from software_renderer_tpu_torch.ops import texture_kernel as ttk
@@ -88,7 +105,7 @@ from software_renderer_tpu_torch.ops.rasterize_kernel import (
 from software_renderer_tpu_torch.ops.shading import fused_output_channels
 from software_renderer_tpu_torch.parallel.batch import render_batch
 from software_renderer_tpu_torch.parallel.sharding import texture_train_step
-from software_renderer_tpu_torch.render import triangle_inputs
+from software_renderer_tpu_torch.render import clip_inputs, triangle_inputs
 from software_renderer_tpu_torch.tools import probe_dyngather as probe
 from software_renderer_tpu_torch.tools.probe_dyngather import graph_ms
 from software_renderer_tpu_torch.tools.sweep_binned import percentiles
@@ -152,6 +169,10 @@ OPS_FE_CHANNEL = 18
 # Per texture channel and lane in the bilinear lerp: three subtractions,
 # three multiplications, three additions.
 OPS_LERP = 9
+# The camera path (phase 11): config 4 under scenes.config4_camera at
+# these times (s); every frame has over 1,000 straddling triangles.
+CAMERA_TIMES = (0.0, 0.5, 1.0, 1.5, 2.0)
+MIN_STRADDLERS = 500
 
 
 def sync():
@@ -967,6 +988,255 @@ def phase_probe():
     return launches
 
 
+def corner_w_counts(rp):
+    """(straddling triangles, those with one corner behind, wholly
+    behind) of a frame: corners against the clip's plane w = CLIP_EPS."""
+    tris = rp.mesh.triangles().long()
+    w = tclip.transform_corners_clip(rp.mesh.positions[tris],
+                                     rp.transform)[:, :, 3]
+    n = (w < tclip.CLIP_EPS).sum(dim=1)
+    return (int(((n > 0) & (n < 3)).sum()), int((n == 1).sum()),
+            int((n == 3).sum()))
+
+
+def camera_bins(setup, w, h):
+    """The render path's bins of a frame (4 bands, kmax 48, the culled
+    budget)."""
+    return tb.build_bins(setup, width=w, height=h, kmax=tb.KMAX * 4,
+                         pair_budget_factor=BUDGET, bands=4)
+
+
+def phase_camera_kernels(dev):
+    """K1 with the perspective flag and K2's perspective plan (static and
+    seeded; K4 at 9 channels) against their plain versions at the camera
+    path's shapes: config 4 under scenes.config4_camera at t = 0."""
+    rp = scenes.config4_camera(0.0, device=dev)
+    w, h = rp.width, rp.height
+    res = {}
+    _, chans, attrs, prm, _, _ = triangle_inputs(
+        dataclasses.replace(rp, clip_near=False))
+    t = rp.mesh.indices.numel() // 3
+    cc = fe.corner_cols(rp.mesh.positions[rp.mesh.triangles().long()])
+    cols = torch.stack([c for corner in cc for c in corner]).contiguous()
+    m16 = rp.transform.reshape(16).contiguous()
+    vals = torch.stack([v for chan in attrs for v in chan]).contiguous()
+    fe_args = (cols, m16, vals, w, h)
+    kw1 = dict(cull_backfaces=True, perspective=True)
+    rk, tk = fe_table_kernel(*fe_args, **kw1)
+    rpl, tpl = fe_table_plain(*fe_args, **kw1)
+    sync()
+    assert_bit_equal(rk, rpl, "K1 (perspective) rows")
+    assert_bit_equal(tk, tpl, "K1 (perspective) stream table")
+    a1 = len(attrs) + 1
+    res["fe_persp"] = dict(
+        max_abs_err=max(max_err(rk, rpl), max_err(tk, tpl)),
+        ms=graph_ms(lambda: fe_table_kernel(*fe_args, **kw1), 50),
+        launch_loop_ms=cuda_ms(lambda: fe_table_kernel(*fe_args, **kw1), 50),
+        plain_ms=cuda_ms(lambda: fe_table_plain(*fe_args, **kw1), 5),
+        shape=f"T={t}, A={len(attrs)} + 1/w",
+        # The flag's own work: 3 reciprocals and a multiply per corner
+        # value.
+        **bound(nbytes(cols, m16, vals, rk, tk),
+                (OPS_FE + OPS_FE_CHANNEL * a1 + 3 + 3 * len(attrs)) * t))
+
+    setup, pv, chans, prm, _, _ = clip_inputs(rp)
+    ps = fe.from_setup(setup)
+    table, a, poison = fe.stream_table_planar(
+        ps, fe.attribute_plane_cols(ps, fe.attr_corner_cols(pv)))
+    assert a == a1
+    info = camera_bins(ps, w, h)
+    rows = tb.gather_stream(table, info.ids, poison).contiguous()
+    bbox = fe.bbox_table(ps)
+    kw = dict(width=w, height=h, chans=chans, has_light=True,
+              has_texture=True, bands=4, bbox=bbox, perspective=True)
+    zk, ik, ok = tb.fused_kernel(rows, info.bin_start, prm, **kw)
+    zp, ip, op = tb.fused_plain(rows, info.bin_start, prm, **kw)
+    sync()
+    assert_bit_equal(ik, ip, "K2 (perspective) ids")
+    assert_bit_equal(zk, zp, "K2 (perspective) depth")
+    err = max_err(ok, op)
+    assert err <= PLANE_TOL, f"K2 (perspective) planes differ by {err}"
+    assert bool(torch.isfinite(ok).all()), "K2 (perspective): non-finite"
+    # Per pixel beyond the plan's: the reciprocal of 1/w and a multiply per
+    # channel read.
+    pix_ops = 4 * a + OPS_EPILOGUE + a
+    binned_px = bbox_pixels(bbox[torch.unique(info.ids).long()], w, h)
+    res["fused_persp"] = dict(
+        max_abs_err=err,
+        ms=graph_ms(lambda: tb.fused_kernel(rows, info.bin_start, prm, **kw),
+                    20),
+        launch_loop_ms=cuda_ms(lambda: tb.fused_kernel(
+            rows, info.bin_start, prm, **kw), 20),
+        plain_ms=cuda_ms(lambda: tb.fused_plain(rows, info.bin_start, prm,
+                                                **kw), 2),
+        shape=f"{info.ids.numel()} pairs in {info.bin_start.numel() - 1} "
+              f"bins, {a} channels, [2T] = {ps.num_triangles} slots",
+        **bound(nbytes(rows, info.bin_start, prm, zk, ik, ok),
+                OPS_TEST * binned_px + w * h * pix_ops))
+
+    # The frame's own spills: K3, K4 at A + 1 channels, the seeded plan.
+    assert info.n_overflow > 0, "the camera frame does not spill"
+    ov = torch.nonzero(info.overflow_mask).squeeze(1).to(torch.int32)
+    rec = tb.gather_stream(fe.pack_records_planar(ps, 128), ov,
+                           _poison_row(dev)).contiguous()
+    z0 = torch.full((h, w), float("inf"), device=dev)
+    i0 = torch.full((h, w), -1, dtype=torch.int32, device=dev)
+    z3, i3 = visibility_merge_kernel(rec, z0, i0, width=w, height=h)
+    ov_rows = tb.gather_stream(table, ov, poison).contiguous()
+    g0 = torch.zeros((a, h, w), device=dev)
+    g4 = tb.resolve_merge_kernel(ov_rows, i3, g0, width=w, height=h)
+    g4p = tb.resolve_merge_plain(ov_rows, i3, g0, width=w, height=h)
+    sync()
+    err4 = max_err(g4, g4p)
+    assert err4 <= PLANE_TOL, f"K4 at {a} channels differs by {err4}"
+    seeds = (z3, i3, g4)
+    zs, is_, os_ = tb.fused_kernel(rows, info.bin_start, prm, seeds=seeds,
+                                   **kw)
+    zsp, isp, osp = tb.fused_plain(rows, info.bin_start, prm, seeds=seeds,
+                                   **kw)
+    sync()
+    assert_bit_equal(is_, isp, "K2 (perspective, seeded) ids")
+    assert_bit_equal(zs, zsp, "K2 (perspective, seeded) depth")
+    errs = max_err(os_, osp)
+    assert errs <= PLANE_TOL, f"K2 (perspective, seeded) differs by {errs}"
+    assert bool(torch.isfinite(os_).all())
+    res["fused_persp_seeded"] = dict(
+        max_abs_err=errs,
+        ms=graph_ms(lambda: tb.fused_kernel(rows, info.bin_start, prm,
+                                            seeds=seeds, **kw), 20),
+        plain_ms=cuda_ms(lambda: tb.fused_plain(rows, info.bin_start, prm,
+                                                seeds=seeds, **kw), 2),
+        resolve_merge_ms=graph_ms(lambda: tb.resolve_merge_kernel(
+            ov_rows, i3, g0, width=w, height=h), 20),
+        resolve_merge_max_abs_err=err4,
+        shape=f"{info.ids.numel()} pairs, {ov.numel()} spilled, "
+              f"{a} channels",
+        **bound(nbytes(rows, info.bin_start, prm, zs, is_, os_, *seeds),
+                OPS_TEST * binned_px + w * h * pix_ops))
+    print(f"camera kernels (config4_camera t=0, {w}x{h}, {ps.num_triangles} "
+          f"slots, {int(ps.valid.sum())} valid; {info.ids.numel()} pairs, "
+          f"{ov.numel()} spilled): K1 with the flag, K2's perspective plan "
+          f"static and seeded, K4 at {a} channels equal their plain "
+          f"versions", flush=True)
+    for name in ("fe_persp", "fused_persp", "fused_persp_seeded"):
+        print(f"  {name}: {json.dumps(res[name])}", flush=True)
+    _cuda.reset_launches()
+    return res
+
+
+def phase_camera(dev, card):
+    """The camera path at full size (phase 11 of the module docstring).
+    Returns each path's launches."""
+    passes = [scenes.config4_camera(t, device=dev) for t in CAMERA_TIMES]
+    w, h = passes[0].width, passes[0].height
+    for t, p in zip(CAMERA_TIMES, passes):
+        straddle, one_behind, behind = corner_w_counts(p)
+        setup = clip_inputs(p)[0]
+        info = camera_bins(setup, w, h)
+        n_tri = p.mesh.indices.numel() // 3
+        print(f"camera t={t}: {straddle} straddling triangles ({one_behind} "
+              f"with one corner behind: {straddle + one_behind} clipped "
+              f"triangles), {behind} wholly behind; {int(setup.valid.sum())} "
+              f"of {2 * n_tri} slots drawn; {info.ids.numel()} pairs, "
+              f"{info.n_overflow} spilled", flush=True)
+        assert straddle >= MIN_STRADDLERS, f"t={t}: {straddle} straddlers"
+    paths = {
+        "clip_persp_0": ("0", lambda p: render(p)),
+        "clip_persp_1": ("1", lambda p: render(p)),
+        "persp_only": ("0", lambda p: render(dataclasses.replace(
+            p, clip_near=False))),
+        "clip_persp_pallas": ("0", lambda p: render(p, backend="pallas")),
+        "clip_flat": ("0", lambda p: render(dataclasses.replace(
+            p, shading="flat"))),
+    }
+    launches, frames = {}, {}
+    for name, (mode, fn) in paths.items():
+        ttex.TEX_WINDOWED = mode
+        fn(passes[0])  # warm-up
+        sync()
+        _cuda.reset_launches()
+        times, fbs = [], []
+        for p in passes:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fbs.append(fn(p))
+            end.record()
+            sync()
+            times.append(start.elapsed_time(end))
+        launches[name] = dict(_cuda.launches)
+        frames[name] = fbs
+        bad = [int((~torch.isfinite(fb.color)).any(-1).sum()) for fb in fbs]
+        cov = [float(fb.color[..., 3].mean()) for fb in fbs]
+        print(f"camera {name} (SR_TEX_WINDOWED={mode}): t {list(CAMERA_TIMES)}"
+              f", launches {json.dumps(launches[name])}", flush=True)
+        print(f"  coverage per frame {cov}; non-finite color pixels {bad}",
+              flush=True)
+        print(f"  ms/frame (CUDA events, {card}): {times}; mean "
+              f"{sum(times) / len(times)}", flush=True)
+        dev_ms, n_kernels, n_copies = top_device_ops(
+            lambda: [fn(p) for p in passes], f"{len(passes)} camera frames, "
+            f"{name}")
+        print(f"  device ms/frame (profiled kernels, {card}): "
+              f"{dev_ms / len(passes)}; device kernels/frame "
+              f"{n_kernels / len(passes)}, copies and memsets/frame "
+              f"{n_copies / len(passes)}", flush=True)
+        assert all(n == 0 for n in bad), f"{name}: non-finite colors {bad}"
+        assert all(c > 0 for c in cov), f"{name}: a frame covered nothing"
+    ttex.TEX_WINDOWED = "0"
+    n = len(passes)
+    need = {"clip_persp_0": {"fused_persp": n},
+            "clip_persp_1": {"fused_persp": n, "sampler": n},
+            "persp_only": {"fe_persp": n, "fused_persp": n},
+            "clip_persp_pallas": {"visibility": n},
+            "clip_flat": {"binned_vis": n}}
+    for name, counts in need.items():
+        for k, v in counts.items():
+            assert launches[name][k] == v, (name, k, launches[name])
+    for name in ("clip_persp_0", "clip_persp_1", "clip_persp_pallas",
+                 "clip_flat"):
+        assert launches[name]["fe"] == 0, (name, launches[name])
+    for k in ("fused_persp_seeded", "visibility_merge", "resolve_merge"):
+        assert launches["clip_persp_0"][k] > 0, (k, launches["clip_persp_0"])
+    assert launches["clip_persp_pallas"]["fused"] == 0
+    assert launches["clip_flat"]["fused"] == 0
+
+    for t, p, a, c, f in zip(CAMERA_TIMES, passes, frames["clip_persp_0"],
+                             frames["clip_persp_pallas"],
+                             frames["clip_flat"]):
+        setup, pv, chans, prm, lit, tex = clip_inputs(p)
+        d2, i2, _ = tb.fused_pipeline(setup, pv, prm, width=w, height=h,
+                                      chans=chans, has_light=lit,
+                                      has_texture=tex, perspective=True,
+                                      pair_budget_factor=BUDGET)
+        d3, i3 = visibility_pallas(setup, width=w, height=h)
+        sync()
+        assert_bit_equal(i2, i3, f"camera t={t}: K2 vs K3' ids")
+        assert_bit_equal(d2, d3, f"camera t={t}: K2 vs K3' depth")
+        for what, fb in (("pallas", c), ("flat", f)):
+            assert_bit_equal(fb.depth, a.depth, f"camera t={t}: {what} depth")
+            assert_bit_equal(fb.color[..., 3], a.color[..., 3],
+                             f"camera t={t}: {what} alpha")
+        print(f"camera t={t}: (depth, id) equal across K2 and K3'; coverage "
+              f"{float((i3 >= 0).float().mean())}", flush=True)
+
+    # Case 0 at full width: config 4's own frame has every corner in front
+    # (w >= 1.44), so the clip changes no bit, with or without
+    # perspective-correct attributes.
+    rp = scenes.config4_many_objects(0.0, device=dev)
+    assert corner_w_counts(rp) == (0, 0, 0)
+    for persp in (False, True):
+        base = dataclasses.replace(rp, perspective_correct=persp)
+        fa = render(base)
+        fb = render(dataclasses.replace(base, clip_near=True))
+        sync()
+        assert_bit_equal(fb.color, fa.color, f"case 0 color (persp {persp})")
+        assert_bit_equal(fb.depth, fa.depth, f"case 0 depth (persp {persp})")
+    print(f"case 0 at {rp.width}x{rp.height}: config 4 frame 0 with and "
+          f"without clip_near bit-equal (perspective off and on)", flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -988,6 +1258,7 @@ def main():
 
     res = phase_kernels(dev)                                 # phase 3
     res.update(phase_texture_kernels(dev))
+    res.update(phase_camera_kernels(dev))
     sync()
     phase_spill(dev)                                         # phase 4
     sync()
@@ -1002,6 +1273,8 @@ def main():
     phase_training(dev, card)                                # phase 9
     sync()
     probe_launches = phase_probe()                           # phase 10
+    sync()
+    camera_launches = phase_camera(dev, card)                # phase 11
     sync()
 
     src = "software_renderer_tpu_torch/csrc/"
@@ -1028,11 +1301,19 @@ def main():
                           "tools/probe_dyngather.py:97"),
         "take_along_axis": ("take_along_axis", "probe_gather.cu",
                             "tools/probe_dyngather.py:69"),
+        "fe_persp": ("fe_table_kernel(perspective=True)", "fe.cu",
+                     "software_renderer_tpu/ops/frontend_kernel.py:42"),
+        "fused_persp": ("fused_kernel(perspective=True)", "fused.cu",
+                        "software_renderer_tpu/ops/binning.py:703"),
+        "fused_persp_seeded": ("fused_kernel(perspective=True, seeds=...)",
+                               "fused.cu",
+                               "software_renderer_tpu/ops/binning.py:703"),
     }
     # Launches on the path that runs each kernel: the main path for K1-K4,
     # the pallas backend for K3', flat shading for K5,
     # binned_pipeline(ps, attrs) for K6, the main path under
-    # SR_TEX_WINDOWED=1 for K7 and the probe for K8.
+    # SR_TEX_WINDOWED=1 for K7, the probe for K8 and the camera path for
+    # the perspective instances of K1 and K2.
     path_launches = {k: launches[k] for k in
                      ("fe", "fused", "visibility_merge", "resolve_merge")}
     path_launches["visibility"] = backend_launches["pallas"]["visibility"]
@@ -1041,6 +1322,11 @@ def main():
     path_launches["sampler"] = mode_launches["1"]["sampler"]
     for k in ("window_lookup", "take_along_axis"):
         path_launches[k] = probe_launches[k]
+    # The camera path's: K1's flag with perspective alone, K2's
+    # perspective plan with clip + perspective in mode "0".
+    path_launches["fe_persp"] = camera_launches["persp_only"]["fe_persp"]
+    for k in ("fused_persp", "fused_persp_seeded"):
+        path_launches[k] = camera_launches["clip_persp_0"][k]
     assert all(n > 0 for n in path_launches.values()), path_launches
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -33,17 +33,20 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
 
 # Kernel launches since the last reset_launches(), one plain integer per
 # kernel. A wrapper adds one exactly where it launches its kernel;
-# "fused_seeded" counts the seeded launches among the "fused" ones.
-launches = {"fe": 0, "fused": 0, "fused_seeded": 0, "visibility_merge": 0,
+# "fused_seeded" counts the seeded launches among the "fused" ones, and
+# the "_persp" counts the perspective instances among "fe" and "fused"
+# (and "fused_seeded").
+launches = {"fe": 0, "fe_persp": 0, "fused": 0, "fused_seeded": 0,
+            "fused_persp": 0, "fused_persp_seeded": 0, "visibility_merge": 0,
             "resolve_merge": 0, "visibility": 0, "binned_vis": 0,
             "resolve": 0, "sampler": 0, "window_lookup": 0,
             "take_along_axis": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "sr_fe": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P),
+    "sr_fe": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P),
     "sr_fused": (_P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                 _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+                 _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     "sr_visibility_scratch": (_I, _I, _I, _P),
     "sr_visibility_merge": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
                             _P),

@@ -23,6 +23,13 @@
 //   shared memory and stores the block's contiguous slice of the table in
 //   16-byte chunks.
 // * A is a runtime count up to kMaxChannels.
+// * kPersp (perspective-correct attributes) replaces the XLA stage that
+//   JAX runs beside its kernel, perspective_chan_vals
+//   (software_renderer_tpu/ops/frontend.py:298; plain version of the same
+//   name in ops/frontend.py): each corner value is multiplied by the
+//   corner's 1 / w, with the w this thread has just computed, and a last
+//   channel 1/w joins the table. Computing w again in torch before the
+//   kernel would repeat the transform.
 #include "common.cuh"
 
 namespace {
@@ -78,8 +85,9 @@ constexpr int kRec = 11;  // a0 a1 b0 b1 c0 c1 |D| zx zy zc id
 constexpr int kMaxCols = kRec + 3 * kMaxChannels;
 
 // One thread per triangle; kTable adds the stream table of ``a`` attribute
-// channels ([3a, t] corner columns, v1 v2 v3 per channel).
-template <bool kTable>
+// channels ([3a, t] corner columns, v1 v2 v3 per channel), kPersp their
+// values over w and a channel 1/w (a + 1 <= kMaxChannels).
+template <bool kTable, bool kPersp>
 __global__ void __launch_bounds__(kThreads)
 fe_kernel(const float* __restrict__ cols, int t, const float* __restrict__ m,
           const float* __restrict__ attrs, int a, int width, int height,
@@ -185,8 +193,13 @@ fe_kernel(const float* __restrict__ cols, int t, const float* __restrict__ m,
 
   // The table row: stream_table_planar's columns, then per channel the
   // planes ((a0 v1 + a1 v2) + a2 v3) * inv_area (x, y, const); invalid
-  // triangles get the poison row.
-  const int ncols = kRec + 3 * a;
+  // triangles get the poison row. Perspective: the corner values times
+  // 1 / (w == 0 ? 1 : w), then the channel of those reciprocals.
+  const int na = a + kPersp;
+  const int ncols = kRec + 3 * na;
+  float iw[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) iw[c] = 1.0f / (ws[c] == 0.0f ? 1.0f : ws[c]);
   float* r = stage + threadIdx.x * ncols;
   if (live && valid) {
     const float head[kRec] = {a0, a1, b0, b1, c0, c1, abs_d, zx, zy, zc,
@@ -195,8 +208,17 @@ fe_kernel(const float* __restrict__ cols, int t, const float* __restrict__ m,
     for (int k = 0; k < kRec; ++k) r[k] = head[k];
 #pragma unroll
     for (int ch = 0; ch < kMaxChannels; ++ch) {
-      if (ch < a) {
-        const float v1 = av[3 * ch], v2 = av[3 * ch + 1], v3 = av[3 * ch + 2];
+      if (ch < na) {
+        float v1 = av[3 * ch], v2 = av[3 * ch + 1], v3 = av[3 * ch + 2];
+        if (kPersp && ch == a) {
+          v1 = iw[0];
+          v2 = iw[1];
+          v3 = iw[2];
+        } else if (kPersp) {
+          v1 = v1 * iw[0];
+          v2 = v2 * iw[1];
+          v3 = v3 * iw[2];
+        }
         r[kRec + 3 * ch] = ((a0 * v1 + a1 * v2) + a2 * v3) * inv_area;
         r[kRec + 3 * ch + 1] = ((b0 * v1 + b1 * v2) + b2 * v3) * inv_area;
         r[kRec + 3 * ch + 2] = ((c0 * v1 + c1 * v2) + c2 * v3) * inv_area;
@@ -224,20 +246,26 @@ fe_kernel(const float* __restrict__ cols, int t, const float* __restrict__ m,
 }  // namespace
 
 // attrs: [3a, t] corner-attribute columns, read only with a table; table:
-// [t, 11 + 3a] float32, 16-byte aligned, or null for the rows alone.
+// [t, 11 + 3 (a + persp)] float32, 16-byte aligned, or null for the rows
+// alone (persp then 0).
 extern "C" int sr_fe(const float* cols, int t, const float* m,
-                     const float* attrs, int a, int width, int height,
-                     int cull, int ccw, float near_eps, float* out,
-                     float* table, void* stream) {
-  if (t < 0 || a < 0 || a > kMaxChannels) return (int)cudaErrorInvalidValue;
+                     const float* attrs, int a, int persp, int width,
+                     int height, int cull, int ccw, float near_eps,
+                     float* out, float* table, void* stream) {
+  if (t < 0 || a < 0 || (persp && !table) || a + (persp ? 1 : 0) >
+      kMaxChannels)
+    return (int)cudaErrorInvalidValue;
   if (t == 0) return (int)cudaSuccess;
   const unsigned blocks = (unsigned)((t + kThreads - 1) / kThreads);
   cudaStream_t s = (cudaStream_t)stream;
-  if (table)
-    fe_kernel<true><<<blocks, kThreads, 0, s>>>(
+  if (table && persp)
+    fe_kernel<true, true><<<blocks, kThreads, 0, s>>>(
+        cols, t, m, attrs, a, width, height, cull, ccw, near_eps, out, table);
+  else if (table)
+    fe_kernel<true, false><<<blocks, kThreads, 0, s>>>(
         cols, t, m, attrs, a, width, height, cull, ccw, near_eps, out, table);
   else
-    fe_kernel<false><<<blocks, kThreads, 0, s>>>(
+    fe_kernel<false, false><<<blocks, kThreads, 0, s>>>(
         cols, t, m, attrs, 0, width, height, cull, ccw, near_eps, out, table);
   return (int)cudaGetLastError();
 }

@@ -44,10 +44,19 @@
 // the seed won). The values are those the plain version computes when the
 // record wins. Every pixel of every bin is written, empty bins included.
 //
-// The epilogue is a template over the four non-perspective output plans of
+// The epilogue is a template over the four output plans of
 // fused_output_channels (kLit: lighting from a normal channel; kTex: uv
 // passed on to the texture tail), so each plan compiles to straight-line
-// code with a fixed number of output planes.
+// code with a fixed number of output planes, and over kPersp, the
+// perspective plan (JAX's _fused_kernel with perspective_epilogue,
+// software_renderer_tpu/ops/shading.py:271; plain version
+// perspective_epilogue in ops/shading.py): the records then carry the
+// plan's channels over w and a last 1/w channel, and on a covered pixel the
+// epilogue takes rec = 1 / (1/w at the pixel centre, from the winner's row
+// or the seed G-buffer) once and reads every channel as ch * rec; an
+// uncovered pixel divides by 1 and is zeroed. A covered pixel's 1/w is
+// > 0 (every corner of a drawn triangle has w > 0 after the near-plane cull
+// or clip), so rec is finite.
 #include "common.cuh"
 
 namespace {
@@ -78,6 +87,10 @@ static_assert(kSlabH <= 255, "slab rows fit a box byte");
 // x0 | x1 << 8 | y0 << 16 | y1 << 24; kEmpty meets no warp rectangle.
 constexpr unsigned kEmpty = 0xffu | (0xffu << 16);
 
+// Channels of a perspective plan: the largest plan's 8 (rgb, normal, uv)
+// and 1/w.
+constexpr int kMaxPerspChannels = 9;
+
 // Output planes of each plan:
 //   kLit && kTex: lit rgb, spec, u, v    kLit && !kTex: final rgb
 //   !kLit && kTex: rgb, u, v             !kLit && !kTex: rgb
@@ -94,6 +107,7 @@ struct WalkArgs {
   // K2 only.
   const float* params;   // [32] shading row
   int rgb_off, nrm_off, uv_off;  // channel offsets, -1 where absent
+  int invw_off;          // perspective plan: the 1/w channel (the last)
   const float* z_seed;   // seeded only: [H, W]
   const int* id_seed;    // seeded only: [H, W]
   const float* gb_seed;  // seeded only: [n_channels, H, W]
@@ -142,13 +156,22 @@ __device__ __forceinline__ float chan(int a, int row, size_t p, size_t npix,
   return kSeeded ? g.gb_seed[a * npix + p] : 0.0f;
 }
 
-// fused_epilogue for one pixel; writes kNOut<kLit, kTex> planes to outs.
-template <bool kSeeded, bool kLit, bool kTex>
+// fused_epilogue (inside perspective_epilogue with kPersp) for one pixel;
+// writes kNOut<kLit, kTex> planes to outs.
+template <bool kSeeded, bool kLit, bool kTex, bool kPersp>
 __device__ __forceinline__ void epilogue(int row, size_t p, size_t npix,
                                          float xs, float ys, bool covered,
                                          const float* __restrict__ prm,
                                          const WalkArgs& g, float* outs) {
-  auto ch = [&](int a) { return chan<kSeeded>(a, row, p, npix, xs, ys, g); };
+  float rec = 1.0f;
+  if constexpr (kPersp) {
+    const float invw = chan<kSeeded>(g.invw_off, row, p, npix, xs, ys, g);
+    rec = 1.0f / (covered ? invw : 1.0f);
+  }
+  auto ch = [&](int a) {
+    const float v = chan<kSeeded>(a, row, p, npix, xs, ys, g);
+    return kPersp ? v * rec : v;
+  };
   float base[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c)
@@ -182,7 +205,7 @@ __device__ __forceinline__ void epilogue(int row, size_t p, size_t npix,
 }
 
 // kShade: K2 (winner rows and the epilogue); else K5 (depth and id only).
-template <bool kShade, bool kSeeded, bool kLit, bool kTex>
+template <bool kShade, bool kSeeded, bool kLit, bool kTex, bool kPersp>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     walk_kernel(const WalkArgs g) {
   __shared__ float srec[kCols][kChunk];
@@ -282,8 +305,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     g.id_out[p] = id[i];
     if constexpr (kShade) {
       float outs[kNOut<kLit, kTex>];
-      epilogue<kSeeded, kLit, kTex>(win[i], p, npix, xs, ys[i], id[i] >= 0,
-                                    prm, g, outs);
+      epilogue<kSeeded, kLit, kTex, kPersp>(win[i], p, npix, xs, ys[i],
+                                            id[i] >= 0, prm, g, outs);
 #pragma unroll
       for (int c = 0; c < kNOut<kLit, kTex>; ++c)
         g.out[c * npix + p] = outs[c];
@@ -291,21 +314,23 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
 }
 
-template <bool kShade, bool kSeeded, bool kLit, bool kTex>
+template <bool kShade, bool kSeeded, bool kLit, bool kTex, bool kPersp>
 int launch(int nbins, cudaStream_t s, const WalkArgs& g) {
   const dim3 grid(nbins, (g.tile_h / g.bands) / kSlabH);
   if (nbins > 0)
-    walk_kernel<kShade, kSeeded, kLit, kTex><<<grid, kThreads, 0, s>>>(g);
+    walk_kernel<kShade, kSeeded, kLit, kTex, kPersp>
+        <<<grid, kThreads, 0, s>>>(g);
   return (int)cudaGetLastError();
 }
 
-template <bool kSeeded>
+template <bool kSeeded, bool kPersp>
 int launch_fused(bool lit, bool tex, int nbins, cudaStream_t s,
                  const WalkArgs& g) {
-  if (lit && tex) return launch<true, kSeeded, true, true>(nbins, s, g);
-  if (lit) return launch<true, kSeeded, true, false>(nbins, s, g);
-  if (tex) return launch<true, kSeeded, false, true>(nbins, s, g);
-  return launch<true, kSeeded, false, false>(nbins, s, g);
+  if (lit && tex)
+    return launch<true, kSeeded, true, true, kPersp>(nbins, s, g);
+  if (lit) return launch<true, kSeeded, true, false, kPersp>(nbins, s, g);
+  if (tex) return launch<true, kSeeded, false, true, kPersp>(nbins, s, g);
+  return launch<true, kSeeded, false, false, kPersp>(nbins, s, g);
 }
 
 bool bad_grid(int tile_h, int bands, int n_tri) {
@@ -320,25 +345,31 @@ extern "C" int sr_fused(const float* rows, const int* bin_start, int nbins,
                         int n_tri, int width, int height, int y_start,
                         int tile_h, int bands, int gw, int n_channels,
                         int rgb_off, int nrm_off, int uv_off, int lit, int tex,
-                        const float* z_seed, const int* id_seed,
+                        int persp, const float* z_seed, const int* id_seed,
                         const float* gb_seed, float* z_out, int* id_out,
                         float* out, void* stream) {
+  // A perspective plan's channels are the inner plan's, then 1/w.
+  const int inner = n_channels - (persp ? 1 : 0);
   const auto fits = [&](int off, int size) {
-    return off < 0 || off + size <= n_channels;
+    return off < 0 || off + size <= inner;
   };
   if (wtot != kCols + 3 * n_channels || bad_grid(tile_h, bands, n_tri) ||
+      inner < 0 || (persp && n_channels > kMaxPerspChannels) ||
       !fits(rgb_off, 3) || !fits(nrm_off, 3) || !fits(uv_off, 2) ||
       (lit && nrm_off < 0) || (tex && uv_off < 0))
     return (int)cudaErrorInvalidValue;
   const WalkArgs g{rows,    wtot,    bin_start, (const int4*)bbox,
                    n_tri,   width,   height,    y_start,
                    tile_h,  bands,   gw,        params,
-                   rgb_off, nrm_off, uv_off,    z_seed,
-                   id_seed, gb_seed, z_out,     id_out,
-                   out};
+                   rgb_off, nrm_off, uv_off,    inner,
+                   z_seed,  id_seed, gb_seed,   z_out,
+                   id_out,  out};
   const cudaStream_t s = (cudaStream_t)stream;
-  return z_seed ? launch_fused<true>(lit, tex, nbins, s, g)
-                : launch_fused<false>(lit, tex, nbins, s, g);
+  if (persp)
+    return z_seed ? launch_fused<true, true>(lit, tex, nbins, s, g)
+                  : launch_fused<false, true>(lit, tex, nbins, s, g);
+  return z_seed ? launch_fused<true, false>(lit, tex, nbins, s, g)
+                : launch_fused<false, false>(lit, tex, nbins, s, g);
 }
 
 extern "C" int sr_binned_vis(const float* rows, int wtot, const int* bin_start,
@@ -361,5 +392,6 @@ extern "C" int sr_binned_vis(const float* rows, int wtot, const int* bin_start,
   g.gw = gw;
   g.z_out = z_out;
   g.id_out = id_out;
-  return launch<false, false, false, false>(nbins, (cudaStream_t)stream, g);
+  return launch<false, false, false, false, false>(nbins,
+                                                  (cudaStream_t)stream, g);
 }

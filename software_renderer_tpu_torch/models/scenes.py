@@ -9,6 +9,7 @@ missing; that generator is not ported, so here a missing file raises.
 
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 
 import torch
@@ -111,3 +112,21 @@ def config4_many_objects(time, width: int = 1920, height: int = 1080,
         texture=checkerboard(256, 16, device=device) if textured else None,
         light=Light.default(device), model=model, cull_backfaces=True,
         flat_color=torch.ones(3, device=device))
+
+
+def config4_camera(time, width: int = 1920, height: int = 1080,
+                   triangles: int = 100_000, textured: bool = True,
+                   device=None) -> RenderPass:
+    """Config 4 under a perspective camera inside the object cloud:
+    ``perspective(pi/3, width/height, 0.05, 10) @ look_at((0, 0, 0.6),
+    (0, 0, 1.6)) @ model``, with the near-plane clip and
+    perspective-correct attributes on. At full size about 1,100-1,400
+    triangles straddle the eye plane."""
+    rp = config4_many_objects(time, width, height, triangles, textured,
+                              device=device)
+    dev = rp.transform.device
+    view = (tf.perspective(torch.pi / 3, width / height, 0.05, 10.0,
+                           device=dev)
+            @ tf.look_at((0.0, 0.0, 0.6), (0.0, 0.0, 1.6), device=dev))
+    return dataclasses.replace(rp, transform=view @ rp.model,
+                               clip_near=True, perspective_correct=True)

@@ -35,6 +35,7 @@ does about it is noted at the wrapper.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -43,7 +44,8 @@ from . import frontend as fe
 from .rasterize_kernel import (CHUNK, PLAIN_BLOCK, TILE_H, TILE_W,
                                _poison_row, visibility_merge_kernel)
 from .rasterize_ref import pixel_centers
-from .shading import _chan_offset, fused_epilogue, fused_output_channels
+from .shading import (_chan_offset, fused_epilogue, fused_output_channels,
+                      perspective_epilogue)
 
 # Max (tile, band) bins per binned triangle, in tile units; fused_pipeline
 # scales it by the band count.
@@ -60,6 +62,9 @@ FUSED_BANDS_MIN_T = 2048
 # Rows the CUDA bin walk (K2, K5) covers per block; a band must be a
 # multiple.
 SLAB_H = 8
+# Channels of a perspective plan: the largest plan's 8 (rgb, normal, uv)
+# and 1/w.
+MAX_PERSP_CHANNELS = 9
 
 
 @dataclasses.dataclass
@@ -74,7 +79,7 @@ class BinInfo:
     n_overflow: int
 
 
-def build_bins(ps: fe.PlanarSetup, *, width: int, height: int,
+def build_bins(setup, *, width: int, height: int,
                y_start: int = 0, tile_h: int = TILE_H, tile_w: int = TILE_W,
                chunk: int = CHUNK, kmax: int = KMAX,
                pair_budget_factor: float = PAIR_BUDGET_FACTOR,
@@ -86,8 +91,10 @@ def build_bins(ps: fe.PlanarSetup, *, width: int, height: int,
     ``kmax`` bins, and its inclusive prefix of pair counts stays within
     the budget ``ceil(trunc(pair_budget_factor * T) / chunk) * chunk``
     (the prefix is monotone, so once past the budget every later
-    triangle spills). Every other valid triangle overflows.
+    triangle spills). Every other valid triangle overflows. ``setup``: a
+    PlanarSetup, or a TriangleSetup (the near-plane clip's).
     """
+    ps = fe.as_planar(setup)
     if tile_h % bands or (tile_h // bands) % 8:
         raise ValueError(f"bands={bands} must split tile_h={tile_h} into "
                          "8-row-aligned bands")
@@ -332,17 +339,23 @@ def _walk_bins_plain(rows, bin_start, *, width: int, height: int,
 def fused_plain(rows, bin_start, params, *, bbox, width: int, height: int,
                 chans, has_light: bool, has_texture: bool, bands: int,
                 y_start: int = 0, tile_h: int = TILE_H,
-                tile_w: int = TILE_W, seeds=None):
+                tile_w: int = TILE_W, seeds=None, perspective: bool = False):
     """Plain version of the fused kernel: :func:`_walk_bins_plain`, then
-    :func:`ops.shading.fused_epilogue` over the whole frame. ``bbox`` is
-    the kernel's cull and changes no pixel; it is not read here."""
+    :func:`ops.shading.fused_epilogue` over the whole frame (inside
+    :func:`ops.shading.perspective_epilogue` with ``perspective``).
+    ``bbox`` is the kernel's cull and changes no pixel; it is not read
+    here."""
     z, ids, acc = _walk_bins_plain(
         rows, bin_start, width=width, height=height,
-        n_channels=sum(s for _, s in chans), bands=bands, y_start=y_start,
-        tile_h=tile_h, tile_w=tile_w, seeds=seeds)
-    outs = fused_epilogue(list(acc.unbind(0)), ids >= 0, params, chans=chans,
-                          has_light=has_light, has_texture=has_texture)
-    return z, ids, torch.stack(outs)
+        n_channels=sum(s for _, s in chans) + perspective, bands=bands,
+        y_start=y_start, tile_h=tile_h, tile_w=tile_w, seeds=seeds)
+    epilogue = functools.partial(fused_epilogue, chans=chans,
+                                 has_light=has_light,
+                                 has_texture=has_texture)
+    if perspective:
+        epilogue = functools.partial(perspective_epilogue, inner=epilogue)
+    return z, ids, torch.stack(epilogue(list(acc.unbind(0)), ids >= 0,
+                                        params))
 
 
 def _require_walk(rows, bin_start, bbox, *, width: int, height: int,
@@ -364,7 +377,7 @@ def _require_walk(rows, bin_start, bbox, *, width: int, height: int,
 def fused_kernel(rows, bin_start, params, *, bbox, width: int, height: int,
                  chans, has_light: bool, has_texture: bool, bands: int,
                  y_start: int = 0, tile_h: int = TILE_H,
-                 tile_w: int = TILE_W, seeds=None):
+                 tile_w: int = TILE_W, seeds=None, perspective: bool = False):
     """Fused visibility + attribute planes + shading epilogue.
 
     rows: [n_pairs, 11 + 3A] float32 stream rows in bin order; bin_start:
@@ -376,6 +389,11 @@ def fused_kernel(rows, bin_start, params, *, bbox, width: int, height: int,
     (depth, id) rule. Returns (z [H, W], id [H, W], out [n_out, H, W]).
     CPU tensors run :func:`fused_plain`; CUDA tensors launch
     csrc/fused.cu.
+
+    perspective: the perspective plan. The rows then carry the plan's
+    channels over w and a last 1/w channel (11 + 3 (A + 1) columns, A + 1
+    <= MAX_PERSP_CHANNELS, and A + 1 seed planes); on covered pixels the
+    kernel divides each channel by the interpolated 1/w before the plan.
 
     The records must be coverage-safe (as :func:`build_bins` bins them):
     the kernel tests a record only on the pixels inside its bbox.
@@ -396,13 +414,17 @@ def fused_kernel(rows, bin_start, params, *, bbox, width: int, height: int,
                            height=height, chans=chans, has_light=has_light,
                            has_texture=has_texture, bands=bands,
                            y_start=y_start, tile_h=tile_h, tile_w=tile_w,
-                           seeds=seeds)
+                           seeds=seeds, perspective=perspective)
     dev = rows.device
-    a = sum(s for _, s in chans)
+    a = sum(s for _, s in chans) + perspective
     _require_walk(rows, bin_start, bbox, width=width, height=height,
                   tile_h=tile_h, tile_w=tile_w, bands=bands)
+    if perspective and a > MAX_PERSP_CHANNELS:
+        raise ValueError(f"a perspective plan takes at most "
+                         f"{MAX_PERSP_CHANNELS} channels, got {a}")
     if rows.shape[1] != REC_BASE + 3 * a:
-        raise ValueError(f"rows must be [N, {REC_BASE + 3 * a}]")
+        raise ValueError(f"rows must be [N, {REC_BASE + 3 * a}]"
+                         + (" (the channels and 1/w)" if perspective else ""))
     _cuda.require(params, torch.float32, "params", device=dev, ndim=1)
     if params.shape[0] < 32:
         raise ValueError("params must hold at least 32 values")
@@ -418,15 +440,20 @@ def fused_kernel(rows, bin_start, params, *, bbox, width: int, height: int,
     _cuda.launches["fused"] += 1
     if seeds is not None:
         _cuda.launches["fused_seeded"] += 1
+    if perspective:
+        _cuda.launches["fused_persp"] += 1
+        if seeds is not None:
+            _cuda.launches["fused_persp_seeded"] += 1
     return card_fused(lib, rows, bin_start, params, bbox, width=width,
                       height=height, chans=chans, has_light=has_light,
                       has_texture=has_texture, bands=bands, y_start=y_start,
-                      tile_h=tile_h, seeds=seeds)
+                      tile_h=tile_h, seeds=seeds, perspective=perspective)
 
 
 def card_fused(lib, rows, bin_start, params, bbox, *, width: int,
                height: int, chans, has_light: bool, has_texture: bool,
-               bands: int, y_start: int, tile_h: int, seeds=None):
+               bands: int, y_start: int, tile_h: int, seeds=None,
+               perspective: bool = False):
     """Launch ``lib``'s fused kernel on checked CUDA inputs (those of
     :func:`fused_kernel`); returns (z, id, out)."""
     dev = rows.device
@@ -447,33 +474,42 @@ def card_fused(lib, rows, bin_start, params, bbox, *, width: int,
         rows.data_ptr(), bin_start.data_ptr(), nbins,
         params.data_ptr(), rows.shape[1], bbox.data_ptr(), bbox.shape[0],
         width, height, y_start, tile_h, bands, gw,
-        sum(s for _, s in chans), off("rgb"), off("normal"), off("uv"),
-        int(has_light and "normal" in names), int(has_texture), *seed_ptrs,
-        z.data_ptr(), ids.data_ptr(), out.data_ptr(), _cuda.stream_of(rows)))
+        sum(s for _, s in chans) + perspective, off("rgb"), off("normal"),
+        off("uv"), int(has_light and "normal" in names), int(has_texture),
+        int(perspective), *seed_ptrs, z.data_ptr(), ids.data_ptr(),
+        out.data_ptr(), _cuda.stream_of(rows)))
     return z, ids, out
 
 
-def fused_pipeline(ps: fe.PlanarSetup, attrs, params, *, width: int,
+def fused_pipeline(setup, attrs, params, *, width: int,
                    height: int, chans, has_light: bool, has_texture: bool,
                    y_start: int = 0, tile_h: int = TILE_H,
                    tile_w: int = TILE_W, chunk: int = CHUNK,
                    kmax: int | None = None,
                    pair_budget_factor: float = PAIR_BUDGET_FACTOR,
-                   bands: int | None = None, stream_table=None):
+                   bands: int | None = None, stream_table=None,
+                   perspective: bool = False):
     """Binned raster with fused shading.
 
-    attrs: list over the channels of ``chans`` of per-corner (v1, v2, v3)
-    [T] columns; params: the shading row. Returns (depth [H, W], tri_id
+    setup: the planar front-end's PlanarSetup, or a TriangleSetup (the
+    near-plane clip's [2T] triangles). attrs: list over the channels of
+    ``chans`` of per-corner (v1, v2, v3) [T] columns, or their [T, 3, A]
+    values; params: the shading row. Returns (depth [H, W], tri_id
     [H, W], out [n_out, H, W]) with the fused_output_channels plan.
     stream_table: the (table, n_channels, poison) of these attributes as
     ``fe.planar_front_table`` returns it (``attrs`` is then not read);
-    built here from ``ps`` and ``attrs`` when None.
+    built here from the setup and ``attrs`` when None. perspective: the
+    attributes (or the table) are the plan's channels over w and a last
+    1/w channel (``fe.perspective_chan_vals``,
+    ``shading.perspective_vertex_attrs``), and the kernel runs its
+    perspective plan (:func:`fused_kernel`).
 
     Frames with overflow (unsafe triangles, spans past kmax, pairs past
     the budget) first rasterize the overflow triangles into full-frame
     (z, id, G-buffer) seeds with the merge kernels, then run the fused
     kernel seeded from them (lex (depth, id) ties keep first-drawn-wins).
     """
+    ps = fe.as_planar(setup)
     t = ps.num_triangles
     if bands is None:
         bands = FUSED_BANDS if t >= FUSED_BANDS_MIN_T else 1
@@ -483,8 +519,7 @@ def fused_pipeline(ps: fe.PlanarSetup, attrs, params, *, width: int,
                       tile_h=tile_h, tile_w=tile_w, chunk=chunk, kmax=kmax,
                       pair_budget_factor=pair_budget_factor, bands=bands)
     if stream_table is None:
-        stream_table = fe.stream_table_planar(
-            ps, fe.attribute_plane_cols(ps, attrs))
+        stream_table = _stream_table(ps, attrs)
     table, a, poison = stream_table
     rows = gather_stream(table, info.ids, poison).contiguous()
     bbox = fe.bbox_table(ps)
@@ -507,7 +542,15 @@ def fused_pipeline(ps: fe.PlanarSetup, attrs, params, *, width: int,
                         height=height, chans=chans, has_light=has_light,
                         has_texture=has_texture, bands=bands,
                         y_start=y_start, tile_h=tile_h, tile_w=tile_w,
-                        seeds=seeds)
+                        seeds=seeds, perspective=perspective)
+
+
+def _stream_table(ps, attrs):
+    """The stream table of attribute columns, [T, 3, A] values or None."""
+    if isinstance(attrs, torch.Tensor):
+        return fe.stream_table_planar(ps, fe.attribute_planes(ps, attrs))
+    return fe.stream_table_planar(ps, fe.attribute_plane_cols(ps,
+                                                              attrs or []))
 
 
 # ---------------------------------------------------------------------------
@@ -649,7 +692,7 @@ def resolve_kernel(rows, bin_start, tid, *, n_channels: int, width: int,
     return gb
 
 
-def binned_pipeline(ps: fe.PlanarSetup, attrs=None, *, width: int,
+def binned_pipeline(setup, attrs=None, *, width: int,
                     height: int, y_start: int = 0, tile_h: int = TILE_H,
                     tile_w: int = TILE_W, chunk: int = CHUNK,
                     kmax: int = KMAX,
@@ -657,10 +700,9 @@ def binned_pipeline(ps: fe.PlanarSetup, attrs=None, *, width: int,
                     stream_table=None):
     """Binned raster path over whole tiles (one band).
 
-    attrs: optional list over the channels of per-corner (v1, v2, v3) [T]
-    columns, as :func:`fused_pipeline` takes them; stream_table as
-    :func:`fused_pipeline` takes it. Returns (depth [H, W], tri_id
-    [H, W], G-buffer [H, W, A] or None).
+    setup, attrs and stream_table as :func:`fused_pipeline` takes them
+    (attrs optional). Returns (depth [H, W], tri_id [H, W], G-buffer
+    [H, W, A] or None).
 
     The visibility kernel walks the bins; overflow triangles (unsafe,
     past kmax or the pair budget) are merged on top with the lex (depth,
@@ -670,12 +712,12 @@ def binned_pipeline(ps: fe.PlanarSetup, attrs=None, *, width: int,
     packed sort keys overflow int32, and its overflow waves, exist for
     its key packing and static grid and have no counterpart here.
     """
+    ps = fe.as_planar(setup)
     info = build_bins(ps, width=width, height=height, y_start=y_start,
                       tile_h=tile_h, tile_w=tile_w, chunk=chunk, kmax=kmax,
                       pair_budget_factor=pair_budget_factor)
     if stream_table is None:
-        stream_table = fe.stream_table_planar(
-            ps, fe.attribute_plane_cols(ps, attrs or []))
+        stream_table = _stream_table(ps, attrs)
     table, a, poison = stream_table
     rows = gather_stream(table, info.ids, poison).contiguous()
     geo = dict(width=width, height=height, y_start=y_start)
@@ -698,11 +740,11 @@ def binned_pipeline(ps: fe.PlanarSetup, attrs=None, *, width: int,
     return depth, tri_id, gb.permute(1, 2, 0)
 
 
-def visibility_binned(ps: fe.PlanarSetup, *, width: int, height: int,
+def visibility_binned(setup, *, width: int, height: int,
                       y_start: int = 0, **kw):
     """Binned visibility pass (:func:`binned_pipeline` without
     attributes): (depth [H, W], tri_id [H, W]), the contract of
     ops/rasterize_ref.visibility_ref."""
-    depth, tri_id, _ = binned_pipeline(ps, None, width=width,
+    depth, tri_id, _ = binned_pipeline(setup, None, width=width,
                                        height=height, y_start=y_start, **kw)
     return depth, tri_id

@@ -18,7 +18,7 @@ import torch
 
 from .clip import CLIP_EPS
 from .rasterize_kernel import pack_records
-from .setup import TriangleSetup, coverage_safe
+from .setup import TriangleSetup, setup_columns
 from .vertex import round_half_away
 
 
@@ -95,68 +95,10 @@ def _front_math(corners_c, mm, width: int, height: int, *,
         ys.append(round_half_away(v * hf))
         zs.append(cz / wg)
         ws.append(cw)
-    x1, x2, x3 = xs
-    y1, y2, y3 = ys
-    z1, z2, z3 = zs
-
-    d = (x1 - x3) * (y2 - y3) - (x2 - x3) * (y1 - y3)
-    finite = torch.ones_like(d, dtype=torch.bool)
-    for col in (x1, y1, z1, x2, y2, z2, x3, y3, z3):
-        finite = finite & torch.isfinite(col)
-    degenerate = ~finite | (d == 0.0)
-    s = torch.where(d < 0.0, -1.0, 1.0)
-    abs_d = torch.abs(d)
-    inv_area = torch.where(degenerate, 0.0,
-                           1.0 / torch.where(degenerate, 1.0, abs_d))
-    a0 = (y2 - y3) * s
-    b0 = (x3 - x2) * s
-    a1 = (y3 - y1) * s
-    b1 = (x1 - x3) * s
-    c0 = -(a0 * x3 + b0 * y3)
-    c1 = -(a1 * x3 + b1 * y3)
-    a2 = -(a0 + a1)
-    b2 = -(b0 + b1)
-    c2 = abs_d - c0 - c1
-    zx = (a0 * z1 + a1 * z2 + a2 * z3) * inv_area
-    zy = (b0 * z1 + b1 * z2 + b2 * z3) * inv_area
-    zc = (c0 * z1 + c1 * z2 + c2 * z3) * inv_area
-
-    min_x = torch.minimum(torch.minimum(x1, x2), x3)
-    max_x = torch.maximum(torch.maximum(x1, x2), x3)
-    min_y = torch.minimum(torch.minimum(y1, y2), y3)
-    max_y = torch.maximum(torch.maximum(y1, y2), y3)
-    offscreen = (max_x < 0.0) | (min_x > wf) | (max_y < 0.0) | (min_y > hf)
-    clean = lambda a: torch.where(torch.isfinite(a), a, 0.0)
-    bx0 = torch.clamp(clean(torch.floor(min_x)), 0, width - 1)
-    by0 = torch.clamp(clean(torch.floor(min_y)), 0, height - 1)
-    bx1 = torch.clamp(clean(torch.ceil(max_x)), 0, width - 1)
-    by1 = torch.clamp(clean(torch.ceil(max_y)), 0, height - 1)
-
-    valid = ~degenerate & ~offscreen & near_ok
-    if cull_backfaces:
-        valid = valid & ((d > 0.0) if front_face_ccw else (d < 0.0))
-
-    # Invalid fills: e = (-1, -1, -1) through the constant columns, depth
-    # plane -> +inf, inv_area -> 0. where(), never a multiply by the mask:
-    # a multiply would keep the NaN of non-finite corners.
-    a0 = torch.where(valid, a0, 0.0)
-    a1 = torch.where(valid, a1, 0.0)
-    a2 = torch.where(valid, a2, 0.0)
-    b0 = torch.where(valid, b0, 0.0)
-    b1 = torch.where(valid, b1, 0.0)
-    b2 = torch.where(valid, b2, 0.0)
-    c0 = torch.where(valid, c0, -1.0)
-    c1 = torch.where(valid, c1, -1.0)
-    c2 = torch.where(valid, c2, -1.0)
-    zx = torch.where(valid, zx, 0.0)
-    zy = torch.where(valid, zy, 0.0)
-    zc = torch.where(valid, zc, float("inf"))
-    inv_area = torch.where(valid, inv_area, 0.0)
-    safe = coverage_safe(x1, y1, x2, y2, x3, y3, a0, b0, a1, b1, abs_d,
-                         width, height) | ~valid
-    return (a0, a1, a2, b0, b1, b2, c0, c1, c2, zx, zy, zc,
-            torch.where(valid, abs_d, 0.0), inv_area, d, bx0, by0, bx1, by1,
-            valid, ws[0], ws[1], ws[2], safe)
+    cols = setup_columns(xs, ys, zs, width, height,
+                         cull_backfaces=cull_backfaces,
+                         front_face_ccw=front_face_ccw, extra_valid=near_ok)
+    return (*cols[:-1], *ws, cols[-1])
 
 
 def planar_setup_from_rows(rows: torch.Tensor) -> PlanarSetup:
@@ -200,16 +142,19 @@ def planar_front(corners_c, transform, width: int, height: int, *,
 def planar_front_table(corners_c, transform, attrs, width: int, height: int,
                        *, cull_backfaces: bool = False,
                        front_face_ccw: bool = True,
-                       near_eps: float = CLIP_EPS):
+                       near_eps: float = CLIP_EPS,
+                       perspective: bool = False):
     """:func:`planar_front` and the stream table of ``attrs`` in one pass.
 
     attrs: list over the channels of per-corner (v1, v2, v3) [T] columns,
     as :func:`attribute_plane_cols` takes them. Returns (PlanarSetup,
     table, n_channels, poison), the values of
     ``stream_table_planar(ps, attribute_plane_cols(ps, attrs))`` beside
-    the setup. On CUDA tensors one launch of the front-end kernel writes
-    the setup's rows and the table; on CPU tensors the plain versions run
-    (ops/frontend_kernel.py).
+    the setup; with ``perspective``, of
+    ``perspective_chan_vals(attrs, ps)`` instead of ``attrs`` (the
+    channels over w, then 1/w: n_channels is one more). On CUDA tensors
+    one launch of the front-end kernel writes the setup's rows and the
+    table; on CPU tensors the plain versions run (ops/frontend_kernel.py).
     """
     from .frontend_kernel import fe_table_kernel
     cols, m = _front_inputs(corners_c, transform)
@@ -218,8 +163,9 @@ def planar_front_table(corners_c, transform, attrs, width: int, height: int,
         cols.new_empty((0, cols.shape[1])))
     rows, table = fe_table_kernel(
         cols, m, vals, width, height, cull_backfaces=cull_backfaces,
-        front_face_ccw=front_face_ccw, near_eps=near_eps)
-    return (planar_setup_from_rows(rows), table, len(attrs),
+        front_face_ccw=front_face_ccw, near_eps=near_eps,
+        perspective=perspective)
+    return (planar_setup_from_rows(rows), table, len(attrs) + perspective,
             _stream_poison(table.shape[1], table.device))
 
 
@@ -235,6 +181,53 @@ def to_setup(ps: PlanarSetup) -> TriangleSetup:
         area2=ps.area2, safe=ps.safe)
 
 
+def from_setup(setup: TriangleSetup) -> PlanarSetup:
+    """The columns of an array TriangleSetup as a PlanarSetup (the same
+    values, pure layout; the inverse of :func:`to_setup`), so that a
+    setup from ops/setup.py (the near-plane clip's [2T] triangles) takes
+    the binned path: the bin build, :func:`bbox_table`,
+    :func:`stream_table_planar` and :func:`pack_records_planar` read these
+    columns. A TriangleSetup carries no clip-space w: w1-w3 are NaN (the
+    clip path makes its perspective channels before the setup,
+    ops/shading.py ``perspective_vertex_attrs``)."""
+    col = lambda c, k: setup.coef[:, c, k]
+    w_corners = torch.full((setup.num_triangles, 3), float("nan"),
+                           device=setup.coef.device)
+    return PlanarSetup(
+        a0=col(0, 0), a1=col(0, 1), a2=col(0, 2), b0=col(1, 0),
+        b1=col(1, 1), b2=col(1, 2), c0=col(2, 0), c1=col(2, 1),
+        c2=col(2, 2), zx=setup.zplane[:, 0], zy=setup.zplane[:, 1],
+        zc=setup.zplane[:, 2],
+        abs_d=torch.where(setup.valid, torch.abs(setup.area2), 0.0),
+        inv_area=setup.inv_area, area2=setup.area2, bx0=setup.bbox[:, 0],
+        by0=setup.bbox[:, 1], bx1=setup.bbox[:, 2], by1=setup.bbox[:, 3],
+        valid=setup.valid, w1=w_corners[:, 0], w2=w_corners[:, 1],
+        w3=w_corners[:, 2], safe=setup.safe)
+
+
+def as_planar(setup) -> PlanarSetup:
+    """A PlanarSetup as it is; a TriangleSetup through :func:`from_setup`."""
+    return setup if isinstance(setup, PlanarSetup) else from_setup(setup)
+
+
+def corner_w(ps: PlanarSetup) -> torch.Tensor:
+    """[T, 3] clip-space w of each corner."""
+    return torch.stack([ps.w1, ps.w2, ps.w3], dim=-1)
+
+
+def perspective_chan_vals(chan_vals, ps: PlanarSetup):
+    """Per-corner channel columns -> the same over each corner's clip w,
+    and a last channel 1/w (``1 / w``, with 1 where w is 0). attr/w and
+    1/w are affine in screen space; the perspective plan of the fused
+    epilogue divides the first by the second per pixel (ops/shading.py
+    ``perspective_epilogue``)."""
+    iw = tuple(1.0 / torch.where(w == 0.0, 1.0, w)
+               for w in (ps.w1, ps.w2, ps.w3))
+    out = [(v1 * iw[0], v2 * iw[1], v3 * iw[2]) for (v1, v2, v3) in chan_vals]
+    out.append(iw)
+    return out
+
+
 def attribute_plane_cols(ps: PlanarSetup, chan_vals):
     """Per-corner attribute columns -> affine plane columns (x, y, const
     per channel), ``(coef . vals) * inv_area``."""
@@ -244,6 +237,19 @@ def attribute_plane_cols(ps: PlanarSetup, chan_vals):
         cols.append((ps.b0 * v1 + ps.b1 * v2 + ps.b2 * v3) * ps.inv_area)
         cols.append((ps.c0 * v1 + ps.c1 * v2 + ps.c2 * v3) * ps.inv_area)
     return cols
+
+
+def attribute_planes(ps: PlanarSetup, vals) -> torch.Tensor:
+    """[T, 3, A] per-corner values -> [T, 3A] plane columns, the values of
+    :func:`attribute_plane_cols` (the same operations in the same order)
+    in a few [T, A] operations rather than six per plane."""
+    t, _, a = vals.shape
+    inv = ps.inv_area[:, None]
+    rows = ((ps.a0, ps.a1, ps.a2), (ps.b0, ps.b1, ps.b2),
+            (ps.c0, ps.c1, ps.c2))
+    planes = [((k0[:, None] * vals[:, 0] + k1[:, None] * vals[:, 1])
+               + k2[:, None] * vals[:, 2]) * inv for k0, k1, k2 in rows]
+    return torch.stack(planes, dim=-1).reshape(t, 3 * a)
 
 
 def _stream_poison(n_cols: int, device) -> torch.Tensor:
@@ -258,17 +264,23 @@ def _stream_poison(n_cols: int, device) -> torch.Tensor:
 def stream_table_planar(ps: PlanarSetup, plane_cols):
     """[T, 11 + 3A] combined kernel stream table.
 
-    Columns: a0 a1 | b0 b1 | c0 c1 | |D| | zx zy zc | id | planes. Invalid
-    triangles get the poison row. Returns (table, n_channels, poison).
+    Columns: a0 a1 | b0 b1 | c0 c1 | |D| | zx zy zc | id | planes.
+    plane_cols: the 3A plane columns (:func:`attribute_plane_cols`) or
+    their [T, 3A] stack (:func:`attribute_planes`). Invalid triangles get
+    the poison row. Returns (table, n_channels, poison).
     """
     t = ps.num_triangles
-    a3 = len(plane_cols)
+    a3 = (plane_cols.shape[1] if isinstance(plane_cols, torch.Tensor)
+          else len(plane_cols))
     if a3 % 3:
         raise ValueError("plane columns come in (x, y, const) triplets")
     ids = torch.arange(t, dtype=torch.float32, device=ps.a0.device)
     cols = [ps.a0, ps.a1, ps.b0, ps.b1, ps.c0, ps.c1, ps.abs_d,
             ps.zx, ps.zy, ps.zc, torch.where(ps.valid, ids, -1.0)]
-    table = torch.stack(cols + list(plane_cols), dim=1)
+    if isinstance(plane_cols, torch.Tensor):
+        table = torch.cat([torch.stack(cols, dim=1), plane_cols], dim=1)
+    else:
+        table = torch.stack(cols + list(plane_cols), dim=1)
     poison = _stream_poison(11 + a3, table.device)
     table = torch.where(ps.valid[:, None], table, poison)
     return table, a3 // 3, poison

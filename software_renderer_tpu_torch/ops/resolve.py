@@ -3,9 +3,10 @@
 Counterpart of the JAX package's ops/resolve.py (plain XLA there, plain
 torch here). The visibility pass leaves each pixel's depth and winning
 triangle id; this stage computes the winner's screen-space barycentric
-weights once per pixel and interpolates per-corner attributes with them.
-Sums are explicit multiply-adds in a fixed order. Perspective-correct
-weights wait for ROADMAP.md Queue 1 item 3.
+weights once per pixel and interpolates per-corner attributes with them
+(screen-space linear, as the reference interpolates), or with the
+perspective-correct weights of :func:`perspective_correct_weights`.
+Sums are explicit multiply-adds in a fixed order.
 """
 
 from __future__ import annotations
@@ -31,6 +32,17 @@ def barycentrics_at_pixels(setup: TriangleSetup, tri_id, y_start: int = 0):
     e = (xs[..., None] * coef[..., 0, :] + ys[..., None] * coef[..., 1, :]
          + coef[..., 2, :])                        # [H, W, 3]
     return e * setup.inv_area[tid][..., None], covered
+
+
+def perspective_correct_weights(ws, w_tri, tri_id, covered):
+    """Screen-space weights -> perspective-correct ones:
+    ``ws'_i = (ws_i / w_i) / sum_j (ws_j / w_j)``, with w_tri [T, 3] the
+    clip-space w of each triangle's corners (a 0 taken as 1)."""
+    tid = torch.where(covered, tri_id, 0).long()
+    wv = w_tri[tid]                                # [H, W, 3]
+    wr = ws / torch.where(wv == 0.0, 1.0, wv)
+    denom = wr[..., 0:1] + wr[..., 1:2] + wr[..., 2:3]
+    return wr / torch.where(denom == 0.0, 1.0, denom)
 
 
 def interpolate_attribute(attr_tri, tri_id, ws, covered, fill: float = 0.0):

@@ -7,7 +7,8 @@ per-frame parameter row, in-kernel epilogue and texture tail.
 2D planes. It is the plain version of the epilogue that the CUDA fused
 kernel (csrc/fused.cu) runs per pixel; the kernel evaluates the same
 expressions in the same order, with ``1/sqrt`` (never ``rsqrt``) so that
-the normalisation rounds identically.
+the normalisation rounds identically. ``perspective_epilogue`` around it
+is the plain version of the kernel's perspective plan.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ import torch
 
 from ..device import or_default
 from ..framebuffer import NO_TRIANGLE
-from .resolve import barycentrics_at_pixels, interpolate_attribute
+from .resolve import (barycentrics_at_pixels, interpolate_attribute,
+                      perspective_correct_weights)
 from .texture import (Texture, sample_texture,
                       sample_texture_planes_compacted)
 
@@ -143,27 +145,30 @@ def shade(setup, tri_id, tris, *, shading: str, colors=None, normals=None,
     setup: the TriangleSetup the ids index; tri_id: [H, W] int32; tris:
     [T, 3] vertex indices into the per-vertex ``colors``/``normals``/
     ``uvs``. Interpolates the plan's channels with the winners'
-    barycentric weights, then :func:`shade_gbuffer`. Returns [H, W, 4].
+    barycentric weights (perspective-correct ones when ``w_tri``, the
+    [T, 3] clip-space w of the corners, is given), then
+    :func:`shade_gbuffer`. Returns [H, W, 4].
+
+    corner_attrs: optional ([T, 3, A] values, chans) used instead of the
+    per-vertex gather, for triangle lists that do not index the mesh (the
+    near-plane clip's [2T] triangles, ops/clip.py ``compose_attrs``).
     """
-    if w_tri is not None:
-        raise NotImplementedError(
-            "perspective-correct weights are not ported to PyTorch yet "
-            "(ROADMAP.md Queue 1 item 3, perspective-correct attributes)")
-    if corner_attrs is not None:
-        raise NotImplementedError(
-            "clipped corner attributes are not ported to PyTorch yet "
-            "(ROADMAP.md Queue 1 item 2, clip)")
     if shading == "vertex" and colors is None:
         raise ValueError("'vertex' shading requires per-vertex colors")
     if shading == "textured" and (uvs is None or texture is None):
         raise ValueError("'textured' shading requires uvs + texture")
-    attrs, chans = gather_attribute_values(
-        shading, tris, colors=colors, normals=normals, uvs=uvs,
-        has_light=light is not None and normals is not None)
+    if corner_attrs is not None:
+        attrs, chans = corner_attrs
+    else:
+        attrs, chans = gather_attribute_values(
+            shading, tris, colors=colors, normals=normals, uvs=uvs,
+            has_light=light is not None and normals is not None)
     covered = tri_id != NO_TRIANGLE
     gb = None
     if attrs is not None:
         ws, covered = barycentrics_at_pixels(setup, tri_id, y_start)
+        if w_tri is not None:
+            ws = perspective_correct_weights(ws, w_tri, tri_id, covered)
         gb = interpolate_attribute(attrs, tri_id, ws, covered)
     return shade_gbuffer(gb, covered, shading=shading, chans=chans,
                          light=light, texture=texture, flat_color=flat_color,
@@ -178,11 +183,15 @@ PARAMS_WIDTH = 32
 
 def shading_params(light: Optional[Light], flat_color=(1.0, 1.0, 1.0),
                    view_dir=(0.0, 0.0, -1.0), device=None) -> torch.Tensor:
-    """Pack the per-frame shading constants into one float32 row."""
-    if isinstance(flat_color, torch.Tensor):
-        device = flat_color.device
-    elif light is not None:
-        device = light.direction.device
+    """Pack the per-frame shading constants into one float32 row, on
+    ``device``; where it is None, on the device of ``flat_color`` or the
+    light, else the card (device.py)."""
+    if device is None:
+        if isinstance(flat_color, torch.Tensor):
+            device = flat_color.device
+        elif light is not None:
+            device = light.direction.device
+    device = or_default(device)
     f = lambda v: torch.as_tensor(v, dtype=torch.float32, device=device)
     p = torch.zeros(PARAMS_WIDTH, dtype=torch.float32, device=device)
     if light is not None:
@@ -275,6 +284,30 @@ def fused_epilogue(planes, covered, params, *, chans, has_light: bool,
         outs += uv
     zero = torch.zeros_like(one)
     return [torch.where(covered, o, zero) for o in outs]
+
+
+def perspective_epilogue(planes, covered, params, *, inner):
+    """The perspective plan around a fused epilogue ``inner``.
+
+    planes: A screen-affine ``attr / w`` planes, then the ``1 / w`` plane
+    (:func:`perspective_vertex_attrs`, ops/frontend.py
+    ``perspective_chan_vals``). On covered pixels the interpolated 1/w is
+    > 0 (the near-plane cull or clip keeps every corner's w > 0), and each
+    numerator divided by it is the perspective-correct attribute, the
+    weights of ops/resolve.py ``perspective_correct_weights``; uncovered
+    pixels divide by 1 and ``inner`` zeroes them.
+    """
+    invw = planes[-1]
+    one = torch.ones_like(invw)
+    rec = one / torch.where(covered, invw, one)
+    return inner([p * rec for p in planes[:-1]], covered, params)
+
+
+def perspective_vertex_attrs(attrs, w_corners):
+    """[T, 3, A] attributes and [T, 3] clip-space w -> [T, 3, A + 1]: each
+    attribute over its corner's w, then 1/w (a 0 taken as 1)."""
+    invw = 1.0 / torch.where(w_corners == 0.0, 1.0, w_corners)
+    return torch.cat([attrs * invw[:, :, None], invw[:, :, None]], dim=-1)
 
 
 def finish_fused(out_cf, covered, *, out_chans,

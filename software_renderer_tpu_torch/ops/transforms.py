@@ -2,20 +2,35 @@
 
 Conventions follow the JAX package (ops/transforms.py): column vectors
 (``clip = M @ [x, y, z, 1]``), quaternions laid out (x, y, z, w), NDC z
-in [0, 1], and the reference demo projection ``w = z + 1``. Every
-function returns float32 tensors on the device of its tensor arguments
-(or ``device`` where nothing else decides it).
+in [0, 1], the reference demo projection ``w = z + 1``, and the camera
+(``perspective``, ``look_at``) right-handed, looking down -z. Every
+function returns float32 tensors on the device of its tensor arguments;
+where no argument is a tensor, on ``device``, which defaults to the card
+(device.py: without one it raises rather than build on the CPU).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..device import or_default
+
 
 def _f32(x, device=None) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(dtype=torch.float32, device=device or x.device)
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
+    return torch.as_tensor(x, dtype=torch.float32, device=or_default(device))
+
+
+def _device_of(*args, device=None):
+    """``device`` if given, else the device of the first tensor argument,
+    else the default device (device.py)."""
+    if device is not None:
+        return torch.device(device)
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            return a.device
+    return or_default(None)
 
 
 def quat_from_axis_angle(axis, angle) -> torch.Tensor:
@@ -71,6 +86,10 @@ def inverse_transpose_3x3(m) -> torch.Tensor:
     return adj_t / torch.where(det == 0.0, 1.0, det)
 
 
+def identity(device=None) -> torch.Tensor:
+    return torch.eye(4, dtype=torch.float32, device=or_default(device))
+
+
 def translation_matrix(t, device=None) -> torch.Tensor:
     t = _f32(t, device)
     m = torch.eye(4, dtype=torch.float32, device=t.device)
@@ -93,8 +112,7 @@ def rotation_matrix(q) -> torch.Tensor:
 def trs_matrix(translation=(0.0, 0.0, 0.0), rotation=(0.0, 0.0, 0.0, 1.0),
                scale=(1.0, 1.0, 1.0), device=None) -> torch.Tensor:
     """T @ R @ S (RealityKit ``Transform.matrix`` order)."""
-    if isinstance(rotation, torch.Tensor) and device is None:
-        device = rotation.device
+    device = _device_of(rotation, translation, scale, device=device)
     return (translation_matrix(translation, device)
             @ rotation_matrix(_f32(rotation, device))
             @ scale_matrix(scale, device))
@@ -106,7 +124,37 @@ def reference_projection(device=None) -> torch.Tensor:
                          [0.0, 1.0, 0.0, 0.0],
                          [0.0, 0.0, 1.0, 0.0],
                          [0.0, 0.0, 1.0, 1.0]], dtype=torch.float32,
-                        device=device)
+                        device=or_default(device))
+
+
+def perspective(fov_y, aspect, z_near, z_far, device=None) -> torch.Tensor:
+    """Perspective projection mapping view z in [-near, -far] (looking
+    down -z) to NDC z in [0, 1], with clip w = -z_view."""
+    f = 1.0 / torch.tan(_f32(fov_y, device) / 2.0)
+    m = torch.zeros((4, 4), dtype=torch.float32, device=f.device)
+    m[0, 0] = f / aspect
+    m[1, 1] = f
+    m[2, 2] = z_far / (z_near - z_far)
+    m[2, 3] = z_far * z_near / (z_near - z_far)
+    m[3, 2] = -1.0
+    return m
+
+
+def look_at(eye, target, up=(0.0, 1.0, 0.0), device=None) -> torch.Tensor:
+    """Right-handed view matrix: the camera at ``eye`` looks at
+    ``target`` down its -z axis."""
+    device = _device_of(eye, target, up, device=device)
+    eye, target, up = (_f32(v, device) for v in (eye, target, up))
+    fwd = normalize(target - eye)
+    right = normalize(torch.linalg.cross(fwd, up))
+    true_up = torch.linalg.cross(right, fwd)
+    rot = torch.stack([right, true_up, -fwd])
+    m = torch.eye(4, dtype=torch.float32, device=device)
+    m[:3, :3] = rot
+    # -rot @ eye as multiply-adds: no matrix unit, so no TF32 on a card.
+    m[:3, 3] = -(rot[:, 0] * eye[0] + rot[:, 1] * eye[1]
+                 + rot[:, 2] * eye[2])
+    return m
 
 
 def reference_demo_transform(time, device=None) -> torch.Tensor:

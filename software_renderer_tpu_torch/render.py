@@ -1,7 +1,11 @@
 """RenderPass and the render orchestrator (triangle path, all backends).
 
-Every frame starts with the planar front-end (ops/frontend.py, CUDA
-kernel on the card). Then, by backend:
+Every frame starts with a front-end: the planar one (ops/frontend.py,
+CUDA kernel on the card), or with ``clip_near=True`` the clip front-end
+(torch ops, as JAX's is XLA): ops/clip.py's transform and near-plane
+clip to [2T] triangles, the divide, ``ndc_to_screen`` and
+``triangle_setup_from_corners``, whose TriangleSetup every backend takes
+(the binned path through ``frontend.from_setup``). Then, by backend:
 
 * ``auto`` / ``binned`` (the main path): the front-end writes the stream
   table with the setup (``planar_front_table``), then the banded bin build
@@ -15,10 +19,17 @@ kernel on the card). Then, by backend:
 * ``reference``: the brute-force visibility pass in plain torch
   (ops/rasterize_ref.py), then ``shade``.
 
+``perspective_correct=True`` interpolates attributes perspective-correct:
+on ``auto``/``binned`` the stream table carries each channel over w and
+a 1/w channel (the front-end kernel's flag on the planar path,
+``perspective_vertex_attrs`` on the clipped one) and the fused kernel
+runs its perspective plan; ``reference``/``pallas`` pass the corners'
+w to ``shade``.
+
 Every tensor follows the device of the RenderPass's tensors.
 
-Gradients: on ``auto``/``binned`` the geometry stage (front-end, bins,
-fused kernel) sits in one autograd region whose backward warns and
+Gradients: on ``auto``/``binned`` the geometry stage (either front-end,
+bins, fused kernel) sits in one autograd region whose backward warns and
 returns zeros for the geometry, vertex-attribute and light inputs, as
 JAX's ``_stop_geometry_grads`` does; texture gradients flow through the
 texture tail outside it. ``reference``/``pallas`` stop gradients at depth
@@ -37,13 +48,17 @@ from .framebuffer import Framebuffer
 from .models.mesh import Mesh
 from .ops import frontend as fe
 from .ops.binning import binned_pipeline, fused_pipeline
+from .ops.clip import clip_near, compose_attrs, transform_corners_clip
 from .ops.rasterize_kernel import visibility_pallas
 from .ops.rasterize_ref import visibility_ref
+from .ops.setup import triangle_setup_from_corners
 from .ops.shading import (Light, attribute_channels, finish_fused,
-                          fused_output_channels, shade, shade_gbuffer,
+                          fused_output_channels, gather_attribute_values,
+                          perspective_vertex_attrs, shade, shade_gbuffer,
                           shading_params)
 from .ops.texture import Texture
 from .ops.transforms import inverse_transpose_3x3
+from .ops.vertex import ndc_to_screen
 
 
 @dataclasses.dataclass
@@ -92,6 +107,28 @@ def planar_front_of(rp: RenderPass) -> fe.PlanarSetup:
                            cull_backfaces=rp.cull_backfaces)
 
 
+def clip_front(corners, transform, width: int, height: int, *,
+               cull_backfaces: bool = False):
+    """The near-plane clip front-end: [T, 3, 3] model-space corners ->
+    (TriangleSetup of the [2T] clipped triangles, bary [2T, 3, 3] of
+    their corners over the source corners, w [2T, 3] clip-space w).
+
+    A triangle wholly in front (case 0) keeps its corners and gets the
+    planar front-end's setup bit for bit: the same multiply-add chains,
+    divide and rounding, and the same setup math (ops/setup.py
+    ``setup_columns``)."""
+    clip, bary, cvalid = clip_near(transform_corners_clip(corners, transform))
+    w = clip[:, :, 3]
+    ndc = clip[:, :, :3] / torch.where(w == 0.0, 1.0, w)[:, :, None]
+    t2 = ndc.shape[0]
+    screen = ndc_to_screen(ndc.reshape(t2 * 3, 3), width, height).reshape(
+        t2, 3, 3)
+    setup = triangle_setup_from_corners(
+        screen, width, height, cull_backfaces=cull_backfaces,
+        extra_valid=cvalid)
+    return setup, bary, w
+
+
 def triangle_inputs(rp: RenderPass, ps: Optional[fe.PlanarSetup] = None):
     """What the fused pipeline takes for a triangle RenderPass: the planar
     front-end (computed unless given), the channel plan, the per-corner
@@ -99,10 +136,10 @@ def triangle_inputs(rp: RenderPass, ps: Optional[fe.PlanarSetup] = None):
     shading row, and whether the frame is lit and textured."""
     if ps is None:
         ps = planar_front_of(rp)
-    return (ps, *_shading_inputs(rp))
+    return (ps, *shading_inputs(rp))
 
 
-def _shading_inputs(rp: RenderPass):
+def shading_inputs(rp: RenderPass):
     """:func:`triangle_inputs` without the front-end."""
     mesh = rp.mesh
     tris = mesh.triangles().long()
@@ -127,7 +164,10 @@ def _shading_inputs(rp: RenderPass):
                     for c in range(3))
                 nx, ny, nz = rot(0), rot(1), rot(2)
             attrs += [nx, ny, nz]
-    params = shading_params(rp.light, flat_color=rp.flat_color)
+    # On the mesh's device: a RenderPass built on the card without a
+    # flat_color keeps the dataclass default's CPU tensor.
+    params = shading_params(rp.light, flat_color=rp.flat_color,
+                            device=rp.mesh.positions.device)
     return chans, attrs, params, has_light, has_texture
 
 
@@ -176,6 +216,42 @@ def _stop_geometry_grads(fn, *inputs):
     return _StopGeometryGrads.apply(fn, *inputs)
 
 
+def clipped_channels(corners, transform, vals, width: int, height: int, *,
+                     cull_backfaces: bool, perspective: bool):
+    """:func:`clip_front` and the channel values of its triangles: (setup,
+    [2T, 3, A] values through the clip, each over its corner's w and a
+    last 1/w channel with ``perspective``; None where ``vals``, the
+    [T, 3, A] source values, is None)."""
+    setup, bary, w_c = clip_front(corners, transform, width, height,
+                                  cull_backfaces=cull_backfaces)
+    if vals is None:
+        return setup, None
+    vals = compose_attrs(bary, vals)
+    if perspective:
+        vals = perspective_vertex_attrs(vals, w_c)
+    return setup, vals
+
+
+def _corner_values(attrs):
+    """Per-corner channel columns -> [T, 3, A] values."""
+    return torch.stack([torch.stack(cols, dim=1) for cols in attrs], dim=2)
+
+
+def clip_inputs(rp: RenderPass):
+    """What the fused pipeline takes for a ``clip_near`` RenderPass, as
+    the binned path computes it: (TriangleSetup of the [2T] clipped
+    triangles, their channel values (:func:`clipped_channels`, None
+    without channels), the channel plan, the shading row, lit, textured).
+    """
+    chans, attrs, params, has_light, has_texture = shading_inputs(rp)
+    setup, vals = clipped_channels(
+        rp.mesh.positions[rp.mesh.triangles().long()], rp.transform,
+        _corner_values(attrs) if chans else None, rp.width, rp.height,
+        cull_backfaces=rp.cull_backfaces,
+        perspective=rp.perspective_correct and bool(chans))
+    return setup, vals, chans, params, has_light, has_texture
+
+
 def _visibility(setup, rp: RenderPass, backend: str, y_start: int = 0):
     """(depth, tri_id) of the ``reference`` or ``pallas`` visibility
     pass."""
@@ -187,53 +263,86 @@ def _visibility(setup, rp: RenderPass, backend: str, y_start: int = 0):
 
 
 def render_triangles(rp: RenderPass, backend: str = "auto") -> Framebuffer:
-    """The planar, non-clipped triangle path on any backend (``auto`` is
-    ``binned``, as in the JAX package)."""
+    """The triangle path on any backend (``auto`` is ``binned``, as in the
+    JAX package), with or without the near-plane clip and
+    perspective-correct attributes."""
     if backend not in ("auto", "binned", "pallas", "reference"):
         raise ValueError(f"unknown backend {backend!r}")
-    if rp.clip_near:
-        raise _not_ported("clip_near=True", "Queue 1 item 2, clip")
-    if rp.perspective_correct:
-        raise _not_ported("perspective_correct=True",
-                          "Queue 1 item 3, perspective-correct attributes")
     mesh = rp.mesh
+    tris = mesh.triangles().long()
     if backend in ("reference", "pallas"):
-        setup = fe.to_setup(planar_front_of(rp))
+        corner_attrs = None
+        if rp.clip_near:
+            setup, bary, w_c = clip_front(
+                mesh.positions[tris], rp.transform, rp.width, rp.height,
+                cull_backfaces=rp.cull_backfaces)
+            # shade's own gather would index the unclipped mesh.
+            attrs, chans = gather_attribute_values(
+                rp.shading, tris, colors=mesh.colors, normals=mesh.normals,
+                uvs=mesh.uvs,
+                has_light=rp.light is not None and mesh.normals is not None)
+            if attrs is not None:
+                corner_attrs = (compose_attrs(bary, attrs), chans)
+        else:
+            ps = planar_front_of(rp)
+            setup, w_c = fe.to_setup(ps), fe.corner_w(ps)
         depth, tri_id = _visibility(setup, rp, backend)
         # The visibility buffer is discrete: gradients flow through the
         # shading, not the coverage (JAX render.py:404-405).
         depth, tri_id = depth.detach(), tri_id.detach()
-        color = shade(setup, tri_id, mesh.triangles().long(),
-                      shading=rp.shading, colors=mesh.colors,
-                      normals=mesh.normals, uvs=mesh.uvs, light=rp.light,
-                      texture=rp.texture, flat_color=rp.flat_color,
-                      normal_matrix=_normal_matrix(rp))
+        color = shade(setup, tri_id, tris, shading=rp.shading,
+                      colors=mesh.colors, normals=mesh.normals, uvs=mesh.uvs,
+                      light=rp.light, texture=rp.texture,
+                      flat_color=rp.flat_color,
+                      normal_matrix=_normal_matrix(rp),
+                      w_tri=w_c if rp.perspective_correct else None,
+                      corner_attrs=corner_attrs)
         return Framebuffer(color=color, depth=depth)
-    chans, attrs, params, has_light, has_texture = _shading_inputs(rp)
+    chans, attrs, params, has_light, has_texture = shading_inputs(rp)
     # The JAX package's budgets for the banded layout: culled scenes emit
     # about half the pairs, and bands emit ~1.3-1.5x more pairs than
     # whole tiles.
     budget = 0.85 if rp.cull_backfaces else 3.0
-    corners = fe.corner_cols(mesh.positions[mesh.triangles().long()])
+    persp = rp.perspective_correct and bool(chans)
+    kw = dict(width=rp.width, height=rp.height, pair_budget_factor=budget)
+    plan = dict(chans=chans, has_light=has_light, has_texture=has_texture,
+                perspective=persp)
     n_attr = len(attrs)
 
-    def geometry(*xs):
-        # xs: 9 corner columns, the transform, 3 columns per attribute
-        # channel, the shading row. One front-end launch writes the setup
-        # and the stream table.
-        cols = [tuple(xs[10 + 3 * i:13 + 3 * i]) for i in range(n_attr)]
-        ps, *table = fe.planar_front_table(
-            (xs[0:3], xs[3:6], xs[6:9]), xs[9], cols, rp.width, rp.height,
-            cull_backfaces=rp.cull_backfaces)
-        kw = dict(width=rp.width, height=rp.height,
-                  pair_budget_factor=budget, stream_table=table)
-        if not chans:
-            return binned_pipeline(ps, None, **kw)[:2]
-        return fused_pipeline(ps, None, xs[-1], chans=chans,
-                              has_light=has_light, has_texture=has_texture,
-                              **kw)
+    if rp.clip_near:
+        def geometry(corners, transform, *xs):
+            # xs: the [T, 3, A] attribute values (normals rotated), the
+            # shading row.
+            setup, vals = clipped_channels(
+                corners, transform, xs[0] if chans else None, rp.width,
+                rp.height, cull_backfaces=rp.cull_backfaces,
+                perspective=persp)
+            if not chans:
+                return binned_pipeline(setup, None, **kw)[:2]
+            return fused_pipeline(setup, vals, xs[1], **plan, **kw)
 
-    inputs = [c for corner in corners for c in corner] + [rp.transform]
+        inputs = [mesh.positions[tris], rp.transform]
+        if chans:
+            inputs.append(_corner_values(attrs))
+    else:
+        def geometry(*xs):
+            # xs: 9 corner columns, the transform, 3 columns per attribute
+            # channel, the shading row. One front-end launch writes the
+            # setup and the stream table.
+            cols = [tuple(xs[10 + 3 * i:13 + 3 * i]) for i in range(n_attr)]
+            ps, *table = fe.planar_front_table(
+                (xs[0:3], xs[3:6], xs[6:9]), xs[9], cols, rp.width,
+                rp.height, cull_backfaces=rp.cull_backfaces,
+                perspective=persp)
+            if not chans:
+                return binned_pipeline(ps, None, stream_table=table,
+                                       **kw)[:2]
+            return fused_pipeline(ps, None, xs[-1], stream_table=table,
+                                  **plan, **kw)
+
+        corners = fe.corner_cols(mesh.positions[tris])
+        inputs = [c for corner in corners for c in corner] + [rp.transform]
+        inputs += [c for cols in attrs for c in cols]
     if not chans:
         depth, tri_id = _stop_geometry_grads(geometry, *inputs)
         color = shade_gbuffer(None, tri_id != -1, shading=rp.shading,
@@ -242,9 +351,8 @@ def render_triangles(rp: RenderPass, backend: str = "auto") -> Framebuffer:
         return Framebuffer(color=color, depth=depth)
     out_chans = fused_output_channels(rp.shading, chans, has_light,
                                       has_texture)
-    inputs += [c for cols in attrs for c in cols] + [params]
     # Texture gradients flow through finish_fused, outside the region.
-    depth, tri_id, out = _stop_geometry_grads(geometry, *inputs)
+    depth, tri_id, out = _stop_geometry_grads(geometry, *inputs, params)
     color = finish_fused(out, tri_id != -1, out_chans=out_chans,
                          light=rp.light, texture=rp.texture)
     return Framebuffer(color=color, depth=depth)

@@ -278,13 +278,26 @@ def test_new_kernel_wrappers_run_plain_on_cpu():
     lambda: srt.mesh_from_numpy(np.zeros((3, 3)), np.arange(3)),
     lambda: srt.shapes.box(),
     lambda: srt.checkerboard(8, 2),
-    lambda: srt.Light.default()],
+    lambda: srt.Light.default(),
+    lambda: srt.transforms.reference_projection(),
+    lambda: srt.transforms.translation_matrix((0.0, 0.0, 1.0)),
+    lambda: srt.transforms.scale_matrix(2.0),
+    lambda: srt.transforms.trs_matrix(),
+    lambda: srt.transforms.reference_demo_transform(0.3),
+    lambda: srt.transforms.identity(),
+    lambda: srt.transforms.perspective(1.0, 16 / 9, 0.05, 10.0),
+    lambda: srt.transforms.look_at((0.0, 0.0, 0.6), (0.0, 0.0, 1.6)),
+    lambda: tsh.shading_params(None)],
     ids=["scene", "config4", "load_obj", "render_pass", "setup",
-         "mesh_from_numpy", "shape", "checkerboard", "light"])
+         "mesh_from_numpy", "shape", "checkerboard", "light",
+         "reference_projection", "translation_matrix", "scale_matrix",
+         "trs_matrix", "reference_demo_transform", "identity",
+         "perspective", "look_at", "shading_params"])
 def test_scenes_default_to_the_card(monkeypatch, build):
     """With no card, a scene, mesh, texture, light, OBJ or convert
-    function given no device raises and names the way to ask for the
-    CPU; nothing falls back quietly."""
+    function, or a transform constructor whose arguments hold no tensor,
+    given no device raises and names the way to ask for the CPU; nothing
+    falls back quietly."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         build()
@@ -304,12 +317,3 @@ def test_sample_texture_matches_jax(filt, wrap):
         np.asarray(jtex.sample_texture(tj, jnp.asarray(uv))),
         ttex.sample_texture(tt, torch.from_numpy(uv)).numpy(), atol=1e-6)
 
-
-def test_shade_raises_for_unported_arguments():
-    setup = _port_setup()
-    tid = torch.full((32, 32), -1, dtype=torch.int32)
-    tris = torch.zeros((setup.num_triangles, 3), dtype=torch.long)
-    for kw in (dict(w_tri=torch.ones(setup.num_triangles, 3)),
-               dict(corner_attrs=(None, []))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsh.shade(setup, tid, tris, shading="flat", **kw)

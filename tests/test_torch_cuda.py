@@ -21,10 +21,13 @@ import torch
 
 from software_renderer_tpu_torch import _cuda, render
 from software_renderer_tpu_torch.models import scenes
+from software_renderer_tpu_torch.models.mesh import mesh_from_numpy
 from software_renderer_tpu_torch.ops import binning as tb
 from software_renderer_tpu_torch.ops import frontend as fe
+from software_renderer_tpu_torch.ops import shading as tsh
 from software_renderer_tpu_torch.ops import texture as ttex
 from software_renderer_tpu_torch.ops import texture_kernel as ttk
+from software_renderer_tpu_torch.ops import transforms as tf
 from software_renderer_tpu_torch.ops.frontend_kernel import (
     fe_kernel, fe_plain, fe_table_kernel, fe_table_plain)
 from software_renderer_tpu_torch.ops.rasterize_kernel import (
@@ -33,7 +36,8 @@ from software_renderer_tpu_torch.ops.rasterize_kernel import (
 from software_renderer_tpu_torch.ops.shading import Light, shading_params
 from software_renderer_tpu_torch.parallel.batch import render_batch
 from software_renderer_tpu_torch.parallel.sharding import texture_train_step
-from software_renderer_tpu_torch.render import triangle_inputs
+from software_renderer_tpu_torch.render import (RenderPass, clip_front,
+                                               clip_inputs, triangle_inputs)
 from software_renderer_tpu_torch.tools import probe_dyngather as probe
 
 PLANE_TOL = 1e-5
@@ -804,3 +808,249 @@ def test_texture_wrappers_raise_on_bad_input():
     with pytest.raises(ValueError):
         probe.window_lookup(x, torch.zeros(2, dtype=torch.int32,
                                            device="cuda"), idx, idx)
+
+
+# ---------------------------------------------------------------------------
+# The camera path: K1's perspective flag, K2's perspective plan, the clip
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("t", [5000, 77])
+@pytest.mark.parametrize("n_chan", [0, 2, 8])
+def test_fe_table_kernel_perspective_matches_plain(n_chan, t):
+    """K1 with the perspective flag: rows and the table of the values
+    over w and the 1/w channel bit-equal to the plain composition, on the
+    poison cases (degenerate, offscreen, behind the near plane, NaN
+    corner) and a NaN attribute."""
+    cols, m16, attrs = _fe_table_case(t, n_chan, seed=11)
+    _cuda.reset_launches()
+    rows, table = fe_table_kernel(cols, m16, attrs, 1920, 1080,
+                                  cull_backfaces=True, perspective=True)
+    assert _cuda.launches["fe"] == 1 and _cuda.launches["fe_persp"] == 1
+    p_rows, p_table = fe_table_plain(cols, m16, attrs, 1920, 1080,
+                                     cull_backfaces=True, perspective=True)
+    torch.cuda.synchronize()
+    assert table.shape == (t, 11 + 3 * (n_chan + 1))
+    assert _equal(rows, p_rows) and _equal(table, p_table)
+    valid = rows[fe.FE_ROWS.index("valid")] != 0
+    assert not bool(valid[:4].any()) and 0 < int(valid.sum()) < t
+    poison = fe._stream_poison(11 + 3 * (n_chan + 1), "cuda")
+    assert _equal(table[~valid], poison.expand(int((~valid).sum()), -1))
+    invw = table[valid, -3:]          # the 1/w planes: finite
+    assert bool(torch.isfinite(invw).all())
+
+
+def _persp_walk_inputs(case, bands):
+    """A bin-walk case (see _walk_case) with the perspective plan's
+    channels: the 8 values over random corner w in [0.2, 3], then 1/w."""
+    ps, attrs, h, y0 = _walk_case(case)
+    g = torch.Generator().manual_seed(bands)
+    w = (0.2 + 2.8 * torch.rand((ps.num_triangles, 3), generator=g)).cuda()
+    vals = torch.stack([torch.stack(c, dim=1) for c in attrs], dim=2)
+    pv = fe.attr_corner_cols(tsh.perspective_vertex_attrs(vals, w))
+    info = tb.build_bins(ps, width=_WALK_W, height=h, y_start=y0,
+                         kmax=10_000, pair_budget_factor=1e4, bands=bands)
+    table, a, poison = fe.stream_table_planar(
+        ps, fe.attribute_plane_cols(ps, pv))
+    assert a == 9
+    rows = tb.gather_stream(table, info.ids, poison).contiguous()
+    geo = dict(width=_WALK_W, height=h, y_start=y0, bands=bands)
+    return rows, info.bin_start, fe.bbox_table(ps), geo, ps
+
+
+@pytest.mark.parametrize("bands", [1, 4])
+@pytest.mark.parametrize("case", ["long", "edges", "y_start", "ties"])
+def test_bin_walk_perspective_matches_plain(case, bands):
+    """K2's perspective plan, static and seeded (the seed G-buffer's last
+    plane 1/w > 0), lit + textured and flat plans, against the plain
+    perspective_epilogue: ids and depth bit for bit, planes within
+    PLANE_TOL."""
+    rows, starts, bbox, geo, ps = _persp_walk_inputs(case, bands)
+    params = shading_params(Light.default("cuda"),
+                            flat_color=(0.2, 0.5, 0.7))
+    zk, ik = tb.binned_vis_kernel(rows, starts, bbox=bbox, **geo)
+    zs, ids, gb = _walk_seeds(zk, ik, ps.num_triangles, 9, seed=bands)
+    gb[8] = 0.2 + gb[8]               # a seed's 1/w is > 0
+    _cuda.reset_launches()
+    for plan in _WALK_PLANS:
+        for sd in (None, (zs, ids, gb)):
+            kw = dict(bbox=bbox, seeds=sd, chans=_WALK_CHANS,
+                      perspective=True, **plan, **geo)
+            zk2, ik2, ok2 = tb.fused_kernel(rows, starts, params, **kw)
+            zp2, ip2, op2 = tb.fused_plain(rows, starts, params, **kw)
+            torch.cuda.synchronize()
+            assert _equal(ik2, ip2) and _equal(zk2, zp2)
+            assert bool(torch.isfinite(ok2).all())
+            assert float((ok2 - op2).abs().max()) <= PLANE_TOL
+    assert _cuda.launches["fused_persp"] == 4
+    assert _cuda.launches["fused_persp_seeded"] == 2
+
+
+def test_overflow_kernels_at_nine_channels_match_plain():
+    """The spill path of a perspective frame: K3, K4 at 9 channels (the 8
+    over w and 1/w) and the seeded perspective K2 on config 4's cut
+    camera scene, against their plain versions."""
+    rp = scenes.config4_camera(0.0, width=320, height=180, triangles=3000,
+                               device="cuda")
+    setup, pv, chans, prm, _, _ = clip_inputs(rp)
+    ps = fe.from_setup(setup)
+    table, a, poison = fe.stream_table_planar(
+        ps, fe.attribute_plane_cols(ps, fe.attr_corner_cols(pv)))
+    w, h = rp.width, rp.height
+    info = tb.build_bins(ps, width=w, height=h, kmax=1, bands=4)
+    assert a == 9 and info.n_overflow > 0
+    ov = torch.nonzero(info.overflow_mask).squeeze(1).to(torch.int32)
+    rec = tb.gather_stream(fe.pack_records_planar(ps, 128), ov,
+                           _poison_row("cuda")).contiguous()
+    z0 = torch.full((h, w), float("inf"), device="cuda")
+    i0 = torch.full((h, w), -1, dtype=torch.int32, device="cuda")
+    z3, i3 = visibility_merge_kernel(rec, z0, i0, width=w, height=h)
+    ov_rows = tb.gather_stream(table, ov, poison).contiguous()
+    g0 = torch.zeros((a, h, w), device="cuda")
+    gk = tb.resolve_merge_kernel(ov_rows, i3, g0, width=w, height=h)
+    gp = tb.resolve_merge_plain(ov_rows, i3, g0, width=w, height=h)
+    rows = tb.gather_stream(table, info.ids, poison).contiguous()
+    kw = dict(width=w, height=h, chans=chans, has_light=True,
+              has_texture=True, bands=4, bbox=fe.bbox_table(ps),
+              seeds=(z3, i3, gk), perspective=True)
+    zk, ik, ok = tb.fused_kernel(rows, info.bin_start, prm, **kw)
+    zp, ip, op = tb.fused_plain(rows, info.bin_start, prm, **kw)
+    torch.cuda.synchronize()
+    assert bool((i3 >= 0).any())
+    assert float((gk - gp).abs().max()) <= PLANE_TOL
+    assert _equal(ik, ip) and _equal(zk, zp)
+    assert bool(torch.isfinite(ok).all())
+    assert float((ok - op).abs().max()) <= PLANE_TOL
+
+
+def _camera_scene(name):
+    """The camera scenes of tests/test_torch_camera.py, built by the port
+    on the CPU."""
+    cpu = dict(device="cpu")
+    if name.startswith("config4"):
+        return scenes.config4_camera(0.0, width=160, height=90,
+                                     triangles=3000, **cpu)
+    quad = np.array([0, 1, 2, 0, 2, 3])
+    if name == "straddle":
+        pos = np.array([[-1.0, -0.3, 1.0], [1.0, -0.3, 1.0],
+                        [1.0, -0.3, -4.0], [-1.0, -0.3, -4.0]], np.float32)
+        mesh = mesh_from_numpy(pos, quad, colors=np.array(
+            [[1, 0, 0], [0, 1, 0], [0, 0, 1], [1, 1, 0]], np.float32), **cpu)
+        view = tf.look_at((0.0, 0.4, 0.0), (0.0, -0.3, -2.0), **cpu)
+        return RenderPass(
+            mesh=mesh, transform=tf.perspective(
+                np.pi / 3, 1.0, 0.1, 10.0, **cpu) @ view,
+            width=96, height=96, clip_near=True)
+    lit = name == "slanted_lit"
+    pos = np.array([[-0.5, -0.2, -0.5], [0.5, -0.2, -0.5],
+                    [0.5, -0.2, -3.0], [-0.5, -0.2, -3.0]], np.float32)
+    mesh = mesh_from_numpy(
+        pos, quad, colors=np.ones((4, 3), np.float32),
+        uvs=np.array([[0, 1], [1, 1], [1, 0], [0, 0]], np.float32),
+        normals=np.tile(np.float32([0, 1, 0]), (4, 1)) if lit else None,
+        **cpu)
+    view = tf.look_at((0.0, 0.3, 0.5), (0.0, -0.2, -2.0), **cpu)
+    return RenderPass(
+        mesh=mesh, transform=tf.perspective(np.pi / 3, 1.0, 0.1, 10.0,
+                                            **cpu) @ view,
+        width=64, height=64, shading="textured",
+        texture=ttex.checkerboard(64, 8, device="cpu"),
+        perspective_correct=True,
+        light=Light.default("cpu") if lit else None,
+        model=torch.eye(4) if lit else None)
+
+
+@pytest.mark.parametrize("name,backend,kernels", [
+    ("straddle", "auto", ("fused",)),
+    ("slanted", "auto", ("fe_persp", "fused_persp")),
+    ("slanted_lit", "auto", ("fe_persp", "fused_persp")),
+    ("config4_camera", "auto", ("fused_persp",)),
+    ("config4_camera", "pallas", ("visibility",)),
+    ("config4_camera", "reference", ()),
+    ("config4_camera_flat", "auto", ("binned_vis",))])
+def test_camera_render_on_card_matches_cpu(name, backend, kernels):
+    """The camera scenes on the card against the CPU's plain versions:
+    alpha and depth bit for bit, color within 1e-3; the clip front-end
+    runs as torch ops on both, so the setups are the same."""
+    rp = _camera_scene(name)
+    if name.endswith("flat"):
+        rp = dataclasses.replace(rp, shading="flat")
+    fb_c = render(rp, backend=backend)
+    _cuda.reset_launches()
+    fb_g = render(rp.to("cuda"), backend=backend)
+    torch.cuda.synchronize()
+    for k in kernels:
+        assert _cuda.launches[k] >= 1, (k, dict(_cuda.launches))
+    if rp.clip_near:
+        assert _cuda.launches["fe"] == 0, dict(_cuda.launches)
+    cg, dg = fb_g.color.cpu(), fb_g.depth.cpu()
+    assert bool(fb_c.color[..., 3].any())
+    assert bool(torch.isfinite(cg).all())
+    assert _equal(cg[..., 3], fb_c.color[..., 3])
+    assert _equal(dg, fb_c.depth)
+    assert float((cg - fb_c.color).abs().max()) <= 1e-3
+
+
+def test_clipped_flat_frame_binned_equals_record_walk():
+    """K5 over the clip's [2T] setup (config 4's cut camera scene, flat
+    shading): the binned pass with K3 on its spills equals the record
+    walk K3' on every record, bit for bit."""
+    rp = scenes.config4_camera(0.0, width=320, height=180, triangles=3000,
+                               device="cuda")
+    setup, _, _ = clip_front(
+        rp.mesh.positions[rp.mesh.triangles().long()], rp.transform,
+        rp.width, rp.height, cull_backfaces=True)
+    _cuda.reset_launches()
+    d5, i5 = tb.visibility_binned(setup, width=320, height=180)
+    d3, i3 = visibility_kernel(fe.pack_records_planar(fe.from_setup(setup),
+                                                      128),
+                               width=320, height=180)
+    torch.cuda.synchronize()
+    assert _cuda.launches["binned_vis"] == 1
+    assert bool((i5 >= 0).any())
+    assert _equal(i5, i3) and _equal(d5, d3)
+
+
+def test_perspective_wrappers_raise_on_bad_input():
+    """K2's perspective plan takes at most 9 channels with the 1/w
+    channel last; K1's flag needs the table and leaves room for 1/w."""
+    starts = torch.zeros(2, dtype=torch.int32, device="cuda")
+    bbox = torch.zeros((4, 4), dtype=torch.int32, device="cuda")
+    params = torch.zeros(32, device="cuda")
+    geo = dict(width=8, height=8, bands=1, bbox=bbox)
+    plan = dict(chans=_WALK_CHANS, has_light=True, has_texture=True)
+    with pytest.raises(ValueError, match="1/w"):   # 11 + 3 * 8: no 1/w
+        tb.fused_kernel(torch.zeros((4, 35), device="cuda"), starts, params,
+                        perspective=True, **plan, **geo)
+    wide = [("rgb", 3), ("normal", 3), ("uv", 2), ("extra", 1)]
+    with pytest.raises(ValueError, match="at most 9"):
+        tb.fused_kernel(torch.zeros((4, 41), device="cuda"), starts, params,
+                        perspective=True, chans=wide, has_light=True,
+                        has_texture=True, **geo)
+    tb.fused_kernel(torch.zeros((4, 38), device="cuda"), starts, params,
+                    perspective=True, **plan, **geo)
+    cols, m16 = torch.zeros((9, 8), device="cuda"), torch.eye(4).reshape(
+        16).cuda()
+    with pytest.raises(ValueError):                # 9 channels and 1/w
+        fe_table_kernel(cols, m16, torch.zeros((27, 8), device="cuda"), 8,
+                        8, perspective=True)
+
+
+def test_render_pass_built_on_card_with_default_flat_color():
+    """A RenderPass whose mesh and transform are on the card but whose
+    flat_color is the dataclass default (a CPU tensor) renders on the
+    card (the shading row follows the mesh), equal to the CPU frame."""
+    rp = scenes.config1_flat_cube(0.3, width=128, height=128, device="cpu")
+    rp = RenderPass(mesh=rp.mesh, transform=rp.transform, width=128,
+                    height=128, shading="vertex")
+    fb_c = render(rp)
+    on_card = RenderPass(mesh=rp.mesh.to("cuda"),
+                         transform=rp.transform.to("cuda"), width=128,
+                         height=128, shading="vertex")
+    assert on_card.flat_color.device.type == "cpu"
+    fb_g = render(on_card)
+    torch.cuda.synchronize()
+    cg = fb_g.color.cpu()
+    assert bool(fb_c.color[..., 3].any())
+    assert _equal(cg[..., 3], fb_c.color[..., 3])
+    assert _equal(fb_g.depth.cpu(), fb_c.depth)
+    assert float((cg - fb_c.color).abs().max()) <= 1e-3

@@ -122,10 +122,13 @@ def test_stream_table_and_records_match_jax():
     np.testing.assert_array_equal(rj, rt)
 
 
-@pytest.mark.parametrize("cull,n_chan", [(False, 5), (True, 5), (False, 0)])
-def test_planar_front_table_matches_jax(cull, n_chan):
+@pytest.mark.parametrize("cull,n_chan,persp", [
+    (False, 5, False), (True, 5, False), (False, 0, False),
+    (True, 5, True), (False, 0, True), (False, 8, True)])
+def test_planar_front_table_matches_jax(cull, n_chan, persp):
     """planar_front_table on the CPU (no launch) against JAX planar_front
-    + stream_table_planar(attribute_plane_cols) (the XLA path, T < 4096):
+    + stream_table_planar(attribute_plane_cols) (the XLA path, T < 4096),
+    with ``persp`` of ``perspective_chan_vals`` (K1's perspective flag):
     the setup within the front-end contraction class, ids, validity and
     poison rows exact, the raster columns the setup's own, the planes
     within the chain's ulps plus the propagated edge-constant difference;
@@ -139,18 +142,28 @@ def test_planar_front_table_matches_jax(cull, n_chan):
     first_valid = int(np.argmax(np.asarray(ps_j.valid)))
     if n_chan:
         vals[first_valid, 1, n_chan - 1] = np.nan
+    chans_j = jfe.attr_corner_cols(jnp.asarray(vals))
+    if persp:
+        chans_j = jfe.perspective_chan_vals(chans_j, ps_j)
     tj, aj, pj = (np.asarray(x) if i != 1 else x for i, x in enumerate(
         jfe.stream_table_planar(ps_j, jfe.attribute_plane_cols(
-            ps_j, jfe.attr_corner_cols(jnp.asarray(vals))))))
+            ps_j, chans_j))))
     _cuda.reset_launches()
     ps_t, tt, at, pt = tfe.planar_front_table(
         tfe.corner_cols(torch.from_numpy(corners)), torch.from_numpy(m),
         tfe.attr_corner_cols(torch.from_numpy(vals)), w, h,
-        cull_backfaces=cull)
+        cull_backfaces=cull, perspective=persp)
     assert all(v == 0 for v in _cuda.launches.values()), _cuda.launches
     assert_fe_contraction_class(ps_j, _numpy_fields(ps_t), corners, m,
                                 width=w, height=h,
                                 context=f"planar_front_table cull={cull}")
+    if persp:
+        # The values the planes interpolate: each over its corner's w
+        # (exact on both sides), then 1/w.
+        iw = 1.0 / np.stack([getattr(ps_t, f).numpy() for f in (
+            "w1", "w2", "w3")], 1)
+        vals = np.concatenate([vals * iw[:, :, None], iw[:, :, None]], -1)
+        n_chan += 1
     tt, pt = tt.numpy(), pt.numpy()
     assert aj == at == n_chan and tt.shape == tj.shape == (97, 11 + 3 * n_chan)
     np.testing.assert_array_equal(pt, pj)
@@ -180,7 +193,7 @@ def test_planar_front_table_matches_jax(cull, n_chan):
         want = tj[valid, 11 + 3 * ch:14 + 3 * ch].T
         nan = np.isnan(want)
         np.testing.assert_array_equal(np.isnan(got), nan)
-        assert nan.any() == (ch == n_chan - 1), ch
+        assert nan.any() == (ch == n_chan - 1 - persp), ch
         ok = np.abs(got - want) <= tol[:, valid]
         assert (ok | nan).all(), ch
 

@@ -134,7 +134,6 @@ def test_to_rgba8_matches_jax():
 
 
 @pytest.mark.parametrize("change", [
-    dict(clip_near=True), dict(perspective_correct=True),
     dict(primitive="line"), dict(transform=torch.eye(4).expand(2, 4, 4))])
 def test_unported_paths_raise(change):
     rp = tscenes.config1_flat_cube(0.3, width=64, height=64, device="cpu")
