@@ -58,7 +58,22 @@ the script exits non-zero without printing a result:
    path ms/frame (CUDA events) and device ms and kernels per frame (a
    profile); (depth, id) bit-equal across K2 and K3' on every frame,
    every color finite, and the case-0 no-op: config 4's own frame
-   (every corner in front) with and without the clip bit for bit.
+   (every corner in front) with and without the clip bit for bit;
+12. the rest of the public surface at config 4's full width, each path
+   with the counters reset just before it and read just after (K1 and K2
+   must launch on each triangle path): (a) the 8 main-path frames with a
+   trilinear texture on auto (alpha and depth equal to the bilinear
+   frames', colors finite) and frame 0 on pallas, card vs CPU at phase
+   6's size, the trilinear tail's device time against mode "0"'s; (b)
+   render_rows of frames 0 and 120 in four 270-row bands and rows
+   [37, 240) on auto and pallas, frame 0 flat (K5): alpha and ids equal
+   the full frame's, depth and color in the JAX package's tie class, and
+   whether bit for bit; (c) render_msaa x2 (3840x2160 inside) of frames
+   0 and 120: depth the 2x2 min and color the box of the 4K frame, card
+   vs CPU at small size; (d) the wireframe cube at 8 times, config 4's
+   first 16,384 indices as lines and its 299,808 vertices as points, card
+   frames equal to the CPU's bit for bit; (e) every pixel format, resize
+   to 1280x720 and 3840x2160 and the 2D primitives, card vs CPU.
 
 Phase 3 also holds K1 with its perspective flag and K2's perspective
 plan (static, and seeded from K3 and K4 at 9 channels on the camera
@@ -89,8 +104,15 @@ import time
 import numpy as np
 import torch
 
-from software_renderer_tpu_torch import _cuda, render
+from software_renderer_tpu_torch import (PIXEL_FORMATS, _cuda,
+                                         decode_pixels, encode_pixels,
+                                         render, render_msaa, render_rows)
 from software_renderer_tpu_torch.models import scenes
+from software_renderer_tpu_torch.models.mesh import Mesh
+from software_renderer_tpu_torch.ops import primitives2d as p2
+from software_renderer_tpu_torch.ops.msaa import downsample_box
+from software_renderer_tpu_torch.ops.resize import (resize_bilinear,
+                                                    resize_nearest)
 from software_renderer_tpu_torch.ops import binning as tb
 from software_renderer_tpu_torch.ops import clip as tclip
 from software_renderer_tpu_torch.ops import frontend as fe
@@ -173,6 +195,21 @@ OPS_LERP = 9
 # these times (s); every frame has over 1,000 straddling triangles.
 CAMERA_TIMES = (0.0, 0.5, 1.0, 1.5, 2.0)
 MIN_STRADDLERS = 500
+# Phase 12, the rest of the public surface at full width: render_rows'
+# bands of config 4 at 1080p (four of 270 rows, and a ragged one) on the
+# frames below, render_msaa x2 on these frames, the wireframe cube at
+# these times, config 4's first LINE_INDICES indices as lines, and
+# resize targets.
+ROW_BANDS = ((0, 270), (270, 270), (540, 270), (810, 270))
+RAGGED_BAND = (37, 203)
+ROW_FRAMES = (0, 120)
+MSAA_FRAMES = (0, 120)
+CUBE_TIMES = tuple(0.25 * i for i in range(8))
+LINE_INDICES = 16_384
+RESIZE_SIZES = ((720, 1280), (2160, 3840))
+# Resize card vs CPU: one einsum in float32 whose summation order the two
+# libraries choose.
+RESIZE_TOL = 1e-5
 
 
 def sync():
@@ -823,6 +860,14 @@ def phase_texture_kernels(dev):
               f"{probe.TABLE}x{probe.TABLE} table",
         **bound(nbytes(tab, y0, ty, tx, lk), 0, library_ms=plain_wl))
     res["window_lookup"]["earlier_ms"] = EARLIER_MS["window_lookup"]
+    # The floor under K8's shape_probe: one launch of a one-element torch
+    # op, by the same graph replay.
+    one = torch.zeros(1, device=dev)
+    floor_ms = graph_ms(lambda: one.add_(1.0), 200)
+    print(f"launch floor (one-element torch add, CUDA-graph replay): "
+          f"{floor_ms} ms; K8 take_along_axis {res['take_along_axis']['ms']}"
+          f" ms, {res['take_along_axis']['ms'] / floor_ms} x the floor",
+          flush=True)
     for name in ("sampler", "take_along_axis", "window_lookup"):
         print(f"  {name}: {json.dumps(res[name])}", flush=True)
     _cuda.reset_launches()
@@ -1237,6 +1282,340 @@ def phase_camera(dev, card):
     return launches
 
 
+def timed_frames(fn, items):
+    """(outputs, ms of each) of ``fn(item)`` per item, by CUDA events
+    around each call (each ends in a synchronize)."""
+    outs, times = [], []
+    for it in items:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        outs.append(fn(it))
+        end.record()
+        sync()
+        times.append(start.elapsed_time(end))
+    return outs, times
+
+
+def tie_class_diff(color_a, color_b, depth_a, depth_b, *, atol,
+                   tie_rtol=1e-4, max_diff_frac=0.005):
+    """The JAX package's testing/compare.py ``assert_tie_class_equal`` in
+    torch: few pixels differ, and every pixel whose color or depth
+    differs beyond ``atol`` has the same depth in both frames to
+    ``tie_rtol`` (a flipped depth tie), never a different surface.
+    Returns the count of differing pixels."""
+    bad_c = ~torch.isclose(color_a, color_b, atol=atol).all(-1)
+    bad_d = ~torch.isclose(depth_a, depth_b, atol=atol)
+    assert float(bad_c.float().mean()) <= max_diff_frac, "color differs"
+    assert float(bad_d.float().mean()) <= max_diff_frac, "depth differs"
+    diff = bad_c | bad_d
+    da, db = depth_a[diff], depth_b[diff]
+    both_inf = torch.isinf(da) & torch.isinf(db)
+    both_fin = torch.isfinite(da) & torch.isfinite(db)
+    scale = torch.maximum(da.abs(), db.abs()).clamp(min=1e-6)
+    tie = both_inf | (both_fin & ((da - db).abs() <= tie_rtol * scale))
+    assert bool(tie.all()), f"{int((~tie).sum())} pixels are not ties"
+    return int(diff.sum())
+
+
+def profile_per_frame(fn, n, what, card):
+    dev_ms, n_kernels, n_copies = top_device_ops(fn, what)
+    print(f"  device ms/frame (profiled kernels, {card}): {dev_ms / n}; "
+          f"device kernels/frame {n_kernels / n}, copies and memsets/frame "
+          f"{n_copies / n}", flush=True)
+    return dev_ms / n, n_kernels / n
+
+
+def with_trilinear(rp):
+    return dataclasses.replace(rp, texture=ttex.Texture(
+        data=rp.texture.data, filter="trilinear", wrap=rp.texture.wrap))
+
+
+def phase_trilinear(dev, card):
+    """12a: the 8 main-path frames with the texture trilinear on auto,
+    and frame 0 on pallas; alpha and depth equal the bilinear frames',
+    card equals CPU at phase 6's size, and the trilinear tail's device
+    time against mode "0"'s bilinear tail."""
+    rp = scenes.config4_many_objects(0.0, device=dev)
+    passes = [dataclasses.replace(rp, transform=bench_transform(
+        rp.transform, i)) for i in MAIN_FRAMES]
+    tri = [with_trilinear(p) for p in passes]
+    ttex.TEX_WINDOWED = "0"
+    render(tri[0])  # warm-up
+    sync()
+    _cuda.reset_launches()
+    fbs, times = timed_frames(render, tri)
+    launches = dict(_cuda.launches)
+    bil, _ = timed_frames(render, passes)
+    moved = 0.0
+    for i, a, b in zip(MAIN_FRAMES, bil, fbs):
+        assert_bit_equal(b.color[..., 3], a.color[..., 3],
+                         f"trilinear frame {i} alpha")
+        assert_bit_equal(b.depth, a.depth, f"trilinear frame {i} depth")
+        assert bool(torch.isfinite(b.color).all()), f"frame {i}: non-finite"
+        moved = max(moved, max_err(b.color, a.color))
+    print(f"trilinear: {len(tri)} config-4 frames {list(MAIN_FRAMES)} on "
+          f"auto, launches {json.dumps(launches)}; alpha and depth equal the "
+          f"bilinear frames', color moved up to {moved}", flush=True)
+    print(f"  ms/frame (CUDA events, {card}): {times}; mean "
+          f"{sum(times) / len(times)}", flush=True)
+    profile_per_frame(lambda: [render(p) for p in tri], len(tri),
+                      f"{len(tri)} trilinear frames", card)
+    _cuda.reset_launches()
+    fb_p = render(tri[0], backend="pallas")
+    sync()
+    pallas_launches = dict(_cuda.launches)
+    assert pallas_launches["fe"] == 1 and pallas_launches["visibility"] == 1
+    assert_bit_equal(fb_p.color[..., 3], fbs[0].color[..., 3],
+                     "trilinear pallas alpha")
+    assert_bit_equal(fb_p.depth, fbs[0].depth, "trilinear pallas depth")
+    assert bool(torch.isfinite(fb_p.color).all())
+    print(f"  pallas frame 0: launches {json.dumps(pallas_launches)}; alpha "
+          f"and depth equal auto's; color max |d| "
+          f"{max_err(fb_p.color, fbs[0].color)}", flush=True)
+    # The texture tails alone on frame 0's planes.
+    tex, u, v, covered = frame0_uv(dev)
+    tri_tex = with_trilinear(rp).texture
+    tail_ms = graph_ms(lambda: ttex.sample_texture_planes_trilinear_compacted(
+        tri_tex, u, v, covered), 10)
+    bil_ms = graph_ms(lambda: ttex.sample_texture_planes_compacted(
+        tex, u, v, covered), 10)
+    print(f"  texture tail device ms (CUDA-graph replay, frame 0, {card}): "
+          f"trilinear {tail_ms}, mode \"0\" bilinear {bil_ms}, ratio "
+          f"{tail_ms / bil_ms}", flush=True)
+    rp_c = with_trilinear(scenes.config4_many_objects(
+        0.3, width=320, height=192, triangles=3000, device="cpu"))
+    for backend in ("auto", "pallas"):
+        fb_c = render(rp_c, backend=backend)
+        fb_g = render(rp_c.to(dev), backend=backend)
+        sync()
+        cg = fb_g.color.cpu()
+        assert_bit_equal(cg[..., 3], fb_c.color[..., 3], "small trilinear")
+        assert_bit_equal(fb_g.depth.cpu(), fb_c.depth, "small trilinear")
+        err = max_err(cg, fb_c.color)
+        assert err <= 1e-3, f"small trilinear {backend}: color {err}"
+        print(f"  small trilinear (320x192, 3000 tris, {backend}): card == "
+              f"CPU in alpha and depth, color max |d| {err}", flush=True)
+    assert launches["fe"] == len(tri), launches
+    assert launches["fused"] == len(tri), launches
+    return launches
+
+
+def phase_rows(dev, card):
+    """12b: render_rows of config 4 at 1080p in four 270-row bands and the
+    ragged band, frames 0 and 120 on auto and pallas and frame 0 flat; the
+    stitched bands equal the full frame (alpha and ids exact, depth and
+    color in the tie class, and whether bit for bit)."""
+    rp = scenes.config4_many_objects(0.0, device=dev)
+    w, h = rp.width, rp.height
+    frames = {i: dataclasses.replace(rp, transform=bench_transform(
+        rp.transform, i)) for i in ROW_FRAMES}
+    paths = {"auto": ("auto", "textured", ROW_FRAMES),
+             "pallas": ("pallas", "textured", ROW_FRAMES),
+             "flat": ("auto", "flat", ROW_FRAMES[:1])}
+    bands = ROW_BANDS + (RAGGED_BAND,)
+
+    def ids_of(p, path, y0, rows):
+        ps, chans, attrs, prm, lit, tex = triangle_inputs(p)
+        kw = dict(width=w, height=rows, y_start=y0)
+        if path == "auto":
+            return tb.fused_pipeline(ps, attrs, prm, chans=chans,
+                                     has_light=lit, has_texture=tex,
+                                     pair_budget_factor=BUDGET, **kw)[:2]
+        if path == "pallas":
+            return visibility_pallas(fe.to_setup(ps), **kw)
+        return tb.visibility_binned(ps, pair_budget_factor=BUDGET, **kw)
+
+    launches = {}
+    for path, (backend, shading, idx) in paths.items():
+        ps_ = [dataclasses.replace(frames[i], shading=shading) for i in idx]
+        render_rows(ps_[0], 0, 270, backend=backend)  # warm-up
+        sync()
+        _cuda.reset_launches()
+        out, times = timed_frames(lambda p: [
+            render_rows(p, y0, rows, backend=backend) for y0, rows in bands],
+            ps_)
+        launches[path] = dict(_cuda.launches)
+        print(f"render_rows {path}: frames {list(idx)}, bands "
+              f"{list(bands)}, launches {json.dumps(launches[path])}; ms per "
+              f"frame of 5 bands (CUDA events, {card}): {times}", flush=True)
+        profile_per_frame(lambda: [render_rows(p, y0, rows, backend=backend)
+                                   for p in ps_ for y0, rows in bands],
+                          len(ps_), f"{len(ps_)} frames of 5 bands, {path}",
+                          card)
+        for i, p, fbs in zip(idx, ps_, out):
+            full = render(p, backend=backend)
+            color = torch.cat([fb.color for fb in fbs[:4]])
+            depth = torch.cat([fb.depth for fb in fbs[:4]])
+            y0, rows = RAGGED_BAND
+            rag = slice(y0, y0 + rows)
+            for what, c, d, fc, fd in (
+                    ("4 bands", color, depth, full.color, full.depth),
+                    ("ragged", fbs[4].color, fbs[4].depth, full.color[rag],
+                     full.depth[rag])):
+                assert bool(torch.isfinite(c).all())
+                assert_bit_equal(c[..., 3], fc[..., 3],
+                                 f"rows {path} frame {i} {what} alpha")
+                n_diff = tie_class_diff(c, fc, d, fd, atol=1e-6)
+                bit = bool((c == fc).all()) and bool((d == fd).all())
+                print(f"  frame {i} {what}: alpha exact, depth and color in "
+                      f"the tie class ({n_diff} pixels differ); bit-equal "
+                      f"{bit}", flush=True)
+            _, ids_full = ids_of(p, path, 0, h)
+            for y0, rows in bands:
+                _, ids = ids_of(p, path, y0, rows)
+                assert_bit_equal(ids, ids_full[y0:y0 + rows],
+                                 f"rows {path} frame {i} ids {y0}+{rows}")
+        sync()
+    need = {"auto": ("fe", "fused"), "pallas": ("fe", "visibility"),
+            "flat": ("fe", "binned_vis")}
+    for path, ks in need.items():
+        for k in ks:
+            assert launches[path][k] > 0, f"{k} never launched on " \
+                f"render_rows {path}"
+    print("  band ids equal the full frame's on every path", flush=True)
+    return launches
+
+
+def phase_msaa(dev, card):
+    """12c: render_msaa(samples=2) of config 4 at 1080p (3840x2160
+    inside), frames 0 and 120."""
+    rp = scenes.config4_many_objects(0.0, device=dev)
+    passes = [dataclasses.replace(rp, transform=bench_transform(
+        rp.transform, i)) for i in MSAA_FRAMES]
+    render_msaa(passes[0], 2)  # warm-up
+    sync()
+    _cuda.reset_launches()
+    fbs, times = timed_frames(lambda p: render_msaa(p, 2), passes)
+    launches = dict(_cuda.launches)
+    print(f"render_msaa x2: frames {list(MSAA_FRAMES)} of config 4 at "
+          f"{rp.width}x{rp.height} ({2 * rp.width}x{2 * rp.height} inside), "
+          f"launches {json.dumps(launches)}; ms/frame (CUDA events, {card}): "
+          f"{times}", flush=True)
+    for i, p, fb in zip(MSAA_FRAMES, passes, fbs):
+        assert fb.color.shape == (rp.height, rp.width, 4)
+        assert bool(torch.isfinite(fb.color).all()), f"msaa {i}: non-finite"
+        big = render(dataclasses.replace(p, width=2 * rp.width,
+                                         height=2 * rp.height))
+        assert_bit_equal(fb.depth, big.depth.reshape(
+            rp.height, 2, rp.width, 2).amin(dim=(1, 3)), f"msaa {i} depth")
+        assert_bit_equal(fb.color, downsample_box(big.color, 2),
+                         f"msaa {i} color")
+        print(f"  frame {i}: depth the min and color the mean of the 2x2 "
+              f"blocks of the 4K frame (coverage {float((big.depth < float('inf')).float().mean())})",
+              flush=True)
+    profile_per_frame(lambda: [render_msaa(p, 2) for p in passes],
+                      len(passes), f"{len(passes)} msaa x2 frames", card)
+    rp_c = scenes.config4_many_objects(0.0, width=160, height=96,
+                                       triangles=3000, device="cpu")
+    fb_c = render_msaa(rp_c, 2)
+    fb_g = render_msaa(rp_c.to(dev), 2)
+    sync()
+    assert_bit_equal(fb_g.depth.cpu(), fb_c.depth, "small msaa depth")
+    err = max_err(fb_g.color.cpu(), fb_c.color)
+    assert err <= 1e-3, f"small msaa: color {err}"
+    print(f"  small msaa (160x96, 3000 tris): card == CPU in depth, color max"
+          f" |d| {err}", flush=True)
+    assert launches["fe"] == len(passes), launches
+    assert launches["fused"] == len(passes), launches
+    return launches
+
+
+def phase_lines(dev, card):
+    """12d: the line and point primitives at 1080p, card frames equal to
+    the CPU's bit for bit (the last writer wins on both)."""
+    rp = scenes.config4_many_objects(0.0, device=dev)
+    m = rp.mesh
+    lines = dataclasses.replace(rp, primitive="line", mesh=Mesh(
+        positions=m.positions, indices=m.indices[:LINE_INDICES],
+        colors=m.colors))
+    cases = {
+        "wireframe_cube": [scenes.wireframe_cube(t, width=rp.width,
+                                                 height=rp.height, device=dev)
+                           for t in CUBE_TIMES],
+        "config4_lines": [lines],
+        "config4_points": [dataclasses.replace(rp, primitive="vertices")],
+    }
+    for name, passes in cases.items():
+        render(passes[0])  # warm-up
+        sync()
+        fbs, times = timed_frames(render, passes)
+        written = []
+        for p, fb in zip(passes, fbs):
+            fb_c = render(p.to("cpu"))
+            assert_bit_equal(fb.color.cpu(), fb_c.color, f"{name} color")
+            assert_bit_equal(fb.depth.cpu(), fb_c.depth, f"{name} depth")
+            written.append(int((fb_c.color[..., 3] > 0).sum()))
+        n = (p.mesh.indices.numel() // (2 if p.primitive == "line" else 1))
+        print(f"{name}: {len(passes)} frames at {rp.width}x{rp.height}, "
+              f"{n} {'lines' if p.primitive == 'line' else 'points'} a frame;"
+              f" card == CPU bit for bit; pixels written {written}; ms/frame "
+              f"(CUDA events, {card}): {times}", flush=True)
+        profile_per_frame(lambda: [render(p) for p in passes], len(passes),
+                          f"{len(passes)} {name} frames", card)
+        assert all(x > 0 for x in written), name
+
+
+def phase_formats(dev, card):
+    """12e: every pixel format, resize and the 2D primitives on phase 5's
+    frame 0, card against CPU."""
+    rp = scenes.config4_many_objects(0.0, device=dev)
+    color = render(rp).color
+    cpu = color.cpu()
+    for fmt in PIXEL_FORMATS:
+        ec = encode_pixels(cpu, fmt)
+        eg = encode_pixels(color, fmt)
+        assert eg.dtype == ec.dtype, fmt
+        d = float((eg.cpu().to(torch.float64)
+                   - ec.to(torch.float64)).abs().max())
+        assert d <= (1 if fmt == "gray8" else 0), (fmt, d)
+        assert_bit_equal(decode_pixels(ec.to(dev), fmt).cpu(),
+                         decode_pixels(ec, fmt), f"{fmt} decode")
+    print(f"pixel formats {sorted(PIXEL_FORMATS)}: card == CPU (gray8 within "
+          f"1 LSB) on frame 0", flush=True)
+    for out in RESIZE_SIZES:
+        bg = resize_bilinear(color, *out)
+        err = max_err(bg.cpu(), resize_bilinear(cpu, *out))
+        assert err <= RESIZE_TOL, f"resize_bilinear {out}: {err}"
+        assert_bit_equal(resize_nearest(color, *out).cpu(),
+                         resize_nearest(cpu, *out), f"resize_nearest {out}")
+        print(f"  resize to {out[1]}x{out[0]}: bilinear card vs CPU max |d| "
+              f"{err}, nearest bit-equal; bilinear "
+              f"{graph_ms(lambda: resize_bilinear(color, *out), 5)} ms, "
+              f"nearest {graph_ms(lambda: resize_nearest(color, *out), 5)} "
+              f"ms (CUDA-graph replay, {card})", flush=True)
+    draws = {
+        "rect": lambda im: p2.draw_rect(im, 100.5, 80.0, 900.0, 333.25,
+                                        (1.0, 0.2, 0.0, 0.7)),
+        "circle": lambda im: p2.draw_circle(im, 960.0, 540.5, 300.0,
+                                            (0.0, 0.0, 1.0)),
+        "line": lambda im: p2.draw_line(im, 3.0, 1070.0, 1910.0, 5.0,
+                                        (0.0, 1.0, 0.0)),
+        "triangle2d": lambda im: p2.draw_triangle2d(
+            im, (960.0, 20.5), (30.0, 1050.0), (1890.5, 900.0)),
+    }
+    for name, draw in draws.items():
+        assert_bit_equal(draw(color).cpu(), draw(cpu), f"2D {name}")
+    print(f"  2D primitives {list(draws)} on the 1080p frame: card == CPU "
+          f"bit for bit", flush=True)
+
+
+def phase_surface(dev, card):
+    """Phase 12 (the module docstring): each path with the launch
+    counters reset just before it and read just after."""
+    launches = {"trilinear": phase_trilinear(dev, card)}
+    sync()
+    launches.update({f"rows_{k}": v for k, v in phase_rows(dev, card).items()})
+    sync()
+    launches["msaa"] = phase_msaa(dev, card)
+    sync()
+    phase_lines(dev, card)
+    sync()
+    phase_formats(dev, card)
+    sync()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1276,6 +1655,10 @@ def main():
     sync()
     camera_launches = phase_camera(dev, card)                # phase 11
     sync()
+    t12 = time.perf_counter()
+    phase_surface(dev, card)                                 # phase 12
+    sync()
+    print(f"phase 12 took {time.perf_counter() - t12:.1f} s", flush=True)
 
     src = "software_renderer_tpu_torch/csrc/"
     meta = {

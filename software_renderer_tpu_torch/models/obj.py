@@ -1,4 +1,5 @@
-"""Wavefront OBJ loading into a :class:`Mesh` (config 3's teapot).
+"""Wavefront OBJ reading into a :class:`Mesh` (config 3's teapot) and
+writing (``save_obj``).
 
 The JAX package's models/obj.py, in plain Python and numpy: faces are
 fan-triangulated, each resolved (v, vt, vn) index triple becomes one
@@ -94,3 +95,29 @@ def compute_vertex_normals(positions: np.ndarray,
         np.add.at(normals, tris[:, c], fn)
     lens = np.linalg.norm(normals, axis=-1, keepdims=True)
     return (normals / np.maximum(lens, 1e-12)).astype(np.float32)
+
+
+def save_obj(path: str, mesh: Mesh) -> None:
+    """Minimal OBJ export: the JAX package's text for the same mesh
+    (positions, uvs and normals as numpy float32, faces 1-based)."""
+    f32 = lambda t: t.detach().cpu().numpy()
+    pos = f32(mesh.positions)
+    tris = mesh.indices.detach().cpu().numpy().reshape(-1, 3) + 1
+    has_t = mesh.uvs is not None
+    has_n = mesh.normals is not None
+    with open(path, "w") as f:
+        for p in pos:
+            f.write(f"v {p[0]} {p[1]} {p[2]}\n")
+        if has_t:
+            for t in f32(mesh.uvs):
+                f.write(f"vt {t[0]} {t[1]}\n")
+        if has_n:
+            for n in f32(mesh.normals):
+                f.write(f"vn {n[0]} {n[1]} {n[2]}\n")
+        for a, b, c in tris:
+            if has_t and has_n:
+                f.write(f"f {a}/{a}/{a} {b}/{b}/{b} {c}/{c}/{c}\n")
+            elif has_n:
+                f.write(f"f {a}//{a} {b}//{b} {c}//{c}\n")
+            else:
+                f.write(f"f {a} {b} {c}\n")

@@ -12,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ..device import or_default
@@ -20,6 +21,7 @@ from ..ops.shading import Light
 from ..ops.texture import checkerboard
 from ..render import RenderPass
 from . import shapes
+from .mesh import Mesh, mesh_from_numpy
 from .obj import load_obj
 
 TEAPOT_OBJ = Path(__file__).resolve().parents[2] / "assets" / "teapot.obj"
@@ -40,6 +42,78 @@ def reference_sphere(time, width: int = 512, height: int = 512,
     return RenderPass(mesh=mesh,
                       transform=tf.reference_demo_transform(time, device),
                       width=width, height=height, shading=backend_shading,
+                      flat_color=torch.ones(3, device=device))
+
+
+def rotating_triangle(time, width: int = 512, height: int = 512,
+                      device=None) -> RenderPass:
+    """The reference's rotating-triangle demo: one vertex-colored triangle
+    spinning about the view axis, in NDC."""
+    device = or_default(device)
+    f = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
+    mesh = Mesh(positions=f([[0.0, 0.5, 0.5], [-0.5, 0.0, 0.5],
+                             [0.5, -0.5, 0.5]]),
+                indices=torch.tensor([0, 1, 2], dtype=torch.int32,
+                                     device=device),
+                colors=f([[1, 0, 0], [0, 1, 0], [0, 0, 1]]))
+    q = tf.quat_from_axis_angle(f([0.0, 0.0, 1.0]),
+                                torch.as_tensor(time, dtype=torch.float32,
+                                                device=device))
+    return RenderPass(mesh=mesh, transform=tf.rotation_matrix(q),
+                      width=width, height=height, shading="vertex",
+                      flat_color=torch.ones(3, device=device))
+
+
+_CUBE_EDGES = np.array([
+    [0, 1], [1, 3], [3, 2], [2, 0],   # back face
+    [4, 5], [5, 7], [7, 6], [6, 4],   # front face
+    [0, 4], [1, 5], [2, 6], [3, 7],   # connectors
+], np.int32)
+
+
+def wireframe_cube(time, width: int = 512, height: int = 512,
+                   device=None) -> RenderPass:
+    """The reference's cube demo: a spinning green wireframe cube of 12
+    line segments (``primitive="line"``), two composed rotations."""
+    device = or_default(device)
+    corners = np.array(
+        [[x, y, z] for z in (-0.5, 0.5) for y in (-0.5, 0.5)
+         for x in (-0.5, 0.5)], np.float32)
+    mesh = mesh_from_numpy(corners, _CUBE_EDGES.reshape(-1),
+                           colors=np.tile(np.array([[0.0, 1.0, 0.0]]),
+                                          (8, 1)), device=device)
+    t = torch.as_tensor(time, dtype=torch.float32, device=device)
+    qy = tf.quat_from_axis_angle(
+        torch.tensor([0.0, 1.0, 0.0], device=device), t * 0.5)
+    qx = tf.quat_from_axis_angle(
+        torch.tensor([1.0, 0.0, 0.0], device=device), t * 0.1 + 1.2)
+    model = tf.trs_matrix(translation=(0.0, 0.0, 1.0),
+                          rotation=tf.quat_mul(qy, qx),
+                          scale=(1.2, 1.2, 1.2))
+    return RenderPass(mesh=mesh,
+                      transform=tf.reference_projection(device) @ model,
+                      width=width, height=height, primitive="line",
+                      flat_color=torch.ones(3, device=device))
+
+
+def intersecting_triangles(time, width: int = 512, height: int = 512,
+                           device=None) -> RenderPass:
+    """The reference's triangles demo: two interpenetrating triangles for
+    the depth test, one rotating about y."""
+    device = or_default(device)
+    positions = np.array([
+        [0.0, 0.6, 0.5], [0.6, -0.6, 0.5], [-0.6, -0.6, 0.5],
+        [0.0, 0.6, 0.5], [0.0, -0.6, 0.25], [0.0, -0.6, 0.75],
+    ], np.float32)
+    colors = np.array([[1, 0, 0], [0, 1, 0], [0, 0, 1]] * 2, np.float32)
+    mesh = mesh_from_numpy(positions, np.arange(6, dtype=np.int32),
+                           colors=colors, device=device)
+    q = tf.quat_from_axis_angle(
+        torch.tensor([0.0, 1.0, 0.0], device=device),
+        torch.as_tensor(time, dtype=torch.float32, device=device) * 0.5)
+    model = tf.trs_matrix(translation=(0.0, 0.0, 0.3), rotation=q)
+    return RenderPass(mesh=mesh, transform=model, width=width, height=height,
+                      shading="vertex",
                       flat_color=torch.ones(3, device=device))
 
 

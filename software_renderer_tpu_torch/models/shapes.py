@@ -85,6 +85,19 @@ def box(size=1.0, face_colors: bool = True, device=None) -> Mesh:
                            device=device)
 
 
+def plane(size=1.0, device=None) -> Mesh:
+    """A size x size quad in the y = 0 plane facing +y (two triangles,
+    white, uvs over [0, 1])."""
+    h = float(size) / 2.0
+    positions = np.array(
+        [[-h, 0, -h], [h, 0, -h], [h, 0, h], [-h, 0, h]], np.float32)
+    normals = np.tile(np.array([[0, 1, 0]], np.float32), (4, 1))
+    uvs = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+    return mesh_from_numpy(positions, np.array([0, 1, 2, 0, 2, 3], np.int32),
+                           colors=np.ones((4, 3), np.float32),
+                           normals=normals, uvs=uvs, device=device)
+
+
 def torus(major_radius=0.3, minor_radius=0.12, segments_u=48,
           segments_v=24, device=None) -> Mesh:
     """Torus with abs(normal) colors."""

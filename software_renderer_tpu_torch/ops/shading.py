@@ -23,7 +23,8 @@ from ..framebuffer import NO_TRIANGLE
 from .resolve import (barycentrics_at_pixels, interpolate_attribute,
                       perspective_correct_weights)
 from .texture import (Texture, sample_texture,
-                      sample_texture_planes_compacted)
+                      sample_texture_planes_compacted,
+                      sample_texture_planes_trilinear_compacted)
 
 
 @dataclasses.dataclass
@@ -324,7 +325,11 @@ def finish_fused(out_cf, covered, *, out_chans,
                or _chan_planes(planes, out_chans, "lit"))
     if "uv" in names and texture is not None:
         u, v = _chan_planes(planes, out_chans, "uv")
-        tex = sample_texture_planes_compacted(texture, u, v, covered)
+        if texture.filter == "trilinear":
+            tex = sample_texture_planes_trilinear_compacted(texture, u, v,
+                                                            covered)
+        else:
+            tex = sample_texture_planes_compacted(texture, u, v, covered)
         if len(tex) == 1:  # a single-channel texture broadcasts
             tex = tex * 3
         rgb = [rgb[c] * tex[c] for c in range(3)]

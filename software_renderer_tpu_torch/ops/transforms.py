@@ -157,6 +157,19 @@ def look_at(eye, target, up=(0.0, 1.0, 0.0), device=None) -> torch.Tensor:
     return m
 
 
+def project_ndc_to_uv(p, device=None) -> torch.Tensor:
+    """The reference's NDC -> uv projection as it was meant: xy scaled by
+    1 / (z + 1) (eye at (0, 0, -1)), then shifted by 0.5."""
+    p = _f32(p, device)
+    scale = 1.0 / (p[..., 2] + 1.0)
+    return p[..., :2] * scale[..., None] + 0.5
+
+
+def project_ndc_to_uv_literal(p, device=None) -> torch.Tensor:
+    """The reference's projection as it runs: p.xy (its early return)."""
+    return _f32(p, device)[..., :2]
+
+
 def reference_demo_transform(time, device=None) -> torch.Tensor:
     """The reference live scene's per-frame MVP: two composed quaternion
     rotations, translate z=+1, uniform scale 2, then w = z + 1."""

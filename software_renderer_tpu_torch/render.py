@@ -1,4 +1,7 @@
-"""RenderPass and the render orchestrator (triangle path, all backends).
+"""RenderPass and the render orchestrator: triangles on every backend,
+row bands of the triangle path (``render_rows``), and the line and point
+primitives (ops/lines.py, a deterministic scatter of DDA samples or
+vertices; no backend applies to them).
 
 Every frame starts with a front-end: the planar one (ops/frontend.py,
 CUDA kernel on the card), or with ``clip_near=True`` the clip front-end
@@ -44,9 +47,10 @@ from typing import Optional
 
 import torch
 
-from .framebuffer import Framebuffer
+from .framebuffer import CLEAR_COLOR, CLEAR_DEPTH, Framebuffer
 from .models.mesh import Mesh
 from .ops import frontend as fe
+from .ops import lines as lines_ops
 from .ops.binning import binned_pipeline, fused_pipeline
 from .ops.clip import clip_near, compose_attrs, transform_corners_clip
 from .ops.rasterize_kernel import visibility_pallas
@@ -58,7 +62,7 @@ from .ops.shading import (Light, attribute_channels, finish_fused,
                           shading_params)
 from .ops.texture import Texture
 from .ops.transforms import inverse_transpose_3x3
-from .ops.vertex import ndc_to_screen
+from .ops.vertex import ndc_to_screen, vertex_stage
 
 
 @dataclasses.dataclass
@@ -252,22 +256,53 @@ def clip_inputs(rp: RenderPass):
     return setup, vals, chans, params, has_light, has_texture
 
 
-def _visibility(setup, rp: RenderPass, backend: str, y_start: int = 0):
-    """(depth, tri_id) of the ``reference`` or ``pallas`` visibility
-    pass."""
+def _visibility(setup, width: int, rows: int, backend: str,
+                y_start: int = 0):
+    """(depth, tri_id) of rows [y_start, y_start + rows) from the
+    ``reference`` or ``pallas`` visibility pass."""
     passes = {"reference": visibility_ref, "pallas": visibility_pallas}
     if backend not in passes:
         raise ValueError(f"unknown backend {backend!r}")
-    return passes[backend](setup, width=rp.width, height=rp.height,
+    return passes[backend](setup, width=width, height=rows,
                            y_start=y_start)
 
 
-def render_triangles(rp: RenderPass, backend: str = "auto") -> Framebuffer:
+def _pad_cols(attrs, t: int):
+    """Attribute columns zero-padded to ``t`` triangles (a precomputed
+    front may be padded past the mesh; padding is invalid, so it is never
+    drawn)."""
+    return [tuple(torch.nn.functional.pad(c, (0, t - c.shape[0]))
+                  for c in cols) for cols in attrs]
+
+
+def render_triangles(rp: RenderPass, backend: str = "auto",
+                     y_start: Optional[int] = None,
+                     rows: Optional[int] = None,
+                     front: Optional[fe.PlanarSetup] = None) -> Framebuffer:
     """The triangle path on any backend (``auto`` is ``binned``, as in the
     JAX package), with or without the near-plane clip and
-    perspective-correct attributes."""
+    perspective-correct attributes; optionally only the rows
+    [y_start, y_start + rows).
+
+    A row band keeps global coordinates: the front-end runs over the
+    whole viewport, and the bins, visibility, shading and texture tail
+    over the band's pixel centres, so a band makes the full frame's
+    coverage decisions. Bands need not be a multiple of the 64-row tile.
+    Trilinear texture levels come from differences inside the band, so
+    a band's last row repeats its own edge and does not stitch bit for
+    bit with the next band (as in the JAX package).
+
+    ``front``: a precomputed :class:`ops.frontend.PlanarSetup` of the
+    mesh's triangles (zero-padded past them allowed: padding is invalid)
+    used instead of the front-end; its stream table is built from it
+    (the front-end kernel does not run). Requires ``clip_near=False``.
+    """
     if backend not in ("auto", "binned", "pallas", "reference"):
         raise ValueError(f"unknown backend {backend!r}")
+    if front is not None and rp.clip_near:
+        raise ValueError("a precomputed front requires clip_near=False")
+    out_h = rp.height if rows is None else int(rows)
+    y0 = 0 if y_start is None else int(y_start)
     mesh = rp.mesh
     tris = mesh.triangles().long()
     if backend in ("reference", "pallas"):
@@ -284,9 +319,9 @@ def render_triangles(rp: RenderPass, backend: str = "auto") -> Framebuffer:
             if attrs is not None:
                 corner_attrs = (compose_attrs(bary, attrs), chans)
         else:
-            ps = planar_front_of(rp)
+            ps = front if front is not None else planar_front_of(rp)
             setup, w_c = fe.to_setup(ps), fe.corner_w(ps)
-        depth, tri_id = _visibility(setup, rp, backend)
+        depth, tri_id = _visibility(setup, rp.width, out_h, backend, y0)
         # The visibility buffer is discrete: gradients flow through the
         # shading, not the coverage (JAX render.py:404-405).
         depth, tri_id = depth.detach(), tri_id.detach()
@@ -294,7 +329,7 @@ def render_triangles(rp: RenderPass, backend: str = "auto") -> Framebuffer:
                       colors=mesh.colors, normals=mesh.normals, uvs=mesh.uvs,
                       light=rp.light, texture=rp.texture,
                       flat_color=rp.flat_color,
-                      normal_matrix=_normal_matrix(rp),
+                      normal_matrix=_normal_matrix(rp), y_start=y0,
                       w_tri=w_c if rp.perspective_correct else None,
                       corner_attrs=corner_attrs)
         return Framebuffer(color=color, depth=depth)
@@ -304,7 +339,8 @@ def render_triangles(rp: RenderPass, backend: str = "auto") -> Framebuffer:
     # whole tiles.
     budget = 0.85 if rp.cull_backfaces else 3.0
     persp = rp.perspective_correct and bool(chans)
-    kw = dict(width=rp.width, height=rp.height, pair_budget_factor=budget)
+    kw = dict(width=rp.width, height=out_h, y_start=y0,
+              pair_budget_factor=budget)
     plan = dict(chans=chans, has_light=has_light, has_texture=has_texture,
                 perspective=persp)
     n_attr = len(attrs)
@@ -324,6 +360,24 @@ def render_triangles(rp: RenderPass, backend: str = "auto") -> Framebuffer:
         inputs = [mesh.positions[tris], rp.transform]
         if chans:
             inputs.append(_corner_values(attrs))
+    elif front is not None:
+        names = [f.name for f in dataclasses.fields(fe.PlanarSetup)]
+
+        def geometry(*xs):
+            # xs: the front's columns, 3 columns per attribute channel,
+            # the shading row. The stream table is built from the front.
+            ps = fe.PlanarSetup(*xs[:len(names)])
+            cols = [tuple(xs[len(names) + 3 * i:len(names) + 3 * i + 3])
+                    for i in range(n_attr)]
+            if not chans:
+                return binned_pipeline(ps, None, **kw)[:2]
+            if persp:
+                cols = fe.perspective_chan_vals(cols, ps)
+            return fused_pipeline(ps, cols, xs[-1], **plan, **kw)
+
+        inputs = [getattr(front, n) for n in names]
+        inputs += [c for cols in _pad_cols(attrs, front.num_triangles)
+                   for c in cols]
     else:
         def geometry(*xs):
             # xs: 9 corner columns, the transform, 3 columns per attribute
@@ -358,15 +412,65 @@ def render_triangles(rp: RenderPass, backend: str = "auto") -> Framebuffer:
     return Framebuffer(color=color, depth=depth)
 
 
+def _primitive_inputs(rp: RenderPass):
+    """The vertex stage of a line or point RenderPass: (screen [N, 3],
+    the cleared [H, W, 4] color, per-vertex colors, white where the mesh
+    has none)."""
+    mesh = rp.mesh
+    screen, _ = vertex_stage(mesh.positions, rp.transform, rp.width,
+                             rp.height)
+    dev = mesh.positions.device
+    color = torch.tensor(CLEAR_COLOR, dtype=torch.float32,
+                         device=dev).expand(rp.height, rp.width, 4)
+    colors = mesh.colors if mesh.colors is not None else torch.ones(
+        (mesh.num_vertices, 3), dtype=torch.float32, device=dev)
+    return screen, color, colors
+
+
+def _clear_depth(rp: RenderPass):
+    return torch.full((rp.height, rp.width), CLEAR_DEPTH,
+                      dtype=torch.float32, device=rp.mesh.positions.device)
+
+
+def render_lines(rp: RenderPass) -> Framebuffer:
+    """``primitive="line"``: each index pair a DDA line, colors
+    interpolated along it (ops/lines.py); depth stays cleared."""
+    screen, color, colors = _primitive_inputs(rp)
+    color = lines_ops.draw_lines(color, screen, rp.mesh.lines(), colors)
+    return Framebuffer(color=color, depth=_clear_depth(rp))
+
+
+def render_points(rp: RenderPass) -> Framebuffer:
+    """``primitive="point"``/``"vertices"``: each indexed vertex one
+    pixel (ops/lines.py); depth stays cleared."""
+    screen, color, colors = _primitive_inputs(rp)
+    idx = rp.mesh.indices.long()
+    color = lines_ops.draw_points(color, screen[idx], colors[idx])
+    return Framebuffer(color=color, depth=_clear_depth(rp))
+
+
+def render_rows(rp: RenderPass, y_start: int, rows: int,
+                backend: str = "auto",
+                front: Optional[fe.PlanarSetup] = None) -> Framebuffer:
+    """Rows [y_start, y_start + rows) of the frame with the full frame's
+    semantics (:func:`render_triangles`); ``front`` as it takes it."""
+    if rp.primitive != "triangle":
+        raise NotImplementedError("row slicing applies to the triangle path")
+    return render_triangles(rp, backend, y_start=y_start, rows=rows,
+                            front=front)
+
+
 def render(rp: RenderPass, backend: str = "auto") -> Framebuffer:
-    """Render one frame of a triangle RenderPass."""
+    """Render one frame: triangles on ``backend``, or lines or points
+    (which take no backend)."""
     if rp.transform.dim() != 2:
         raise _not_ported(
             f"a batch of transforms {tuple(rp.transform.shape)}",
             "Queue 1 item 9, batching")
     if rp.primitive == "triangle":
         return render_triangles(rp, backend)
-    if rp.primitive in ("line", "point", "vertices"):
-        raise _not_ported(f"primitive={rp.primitive!r}",
-                          "Queue 1 item 4, lines and points")
+    if rp.primitive == "line":
+        return render_lines(rp)
+    if rp.primitive in ("point", "vertices"):
+        return render_points(rp)
     raise ValueError(f"unknown primitive {rp.primitive!r}")

@@ -287,12 +287,22 @@ def test_new_kernel_wrappers_run_plain_on_cpu():
     lambda: srt.transforms.identity(),
     lambda: srt.transforms.perspective(1.0, 16 / 9, 0.05, 10.0),
     lambda: srt.transforms.look_at((0.0, 0.0, 0.6), (0.0, 0.0, 1.6)),
-    lambda: tsh.shading_params(None)],
+    lambda: tsh.shading_params(None),
+    lambda: srt.create_framebuffer(8, 4),
+    lambda: srt.shapes.plane(),
+    lambda: tscenes.rotating_triangle(0.3),
+    lambda: tscenes.wireframe_cube(0.3),
+    lambda: tscenes.intersecting_triangles(0.3),
+    lambda: srt.RenderConfig().projection_matrix(),
+    lambda: srt.RenderConfig(projection="perspective").projection_matrix()],
     ids=["scene", "config4", "load_obj", "render_pass", "setup",
          "mesh_from_numpy", "shape", "checkerboard", "light",
          "reference_projection", "translation_matrix", "scale_matrix",
          "trs_matrix", "reference_demo_transform", "identity",
-         "perspective", "look_at", "shading_params"])
+         "perspective", "look_at", "shading_params", "create_framebuffer",
+         "plane", "rotating_triangle", "wireframe_cube",
+         "intersecting_triangles", "config_projection",
+         "config_perspective"])
 def test_scenes_default_to_the_card(monkeypatch, build):
     """With no card, a scene, mesh, texture, light, OBJ or convert
     function, or a transform constructor whose arguments hold no tensor,

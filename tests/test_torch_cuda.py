@@ -1054,3 +1054,149 @@ def test_render_pass_built_on_card_with_default_flat_color():
     assert _equal(cg[..., 3], fb_c.color[..., 3])
     assert _equal(fb_g.depth.cpu(), fb_c.depth)
     assert float((cg - fb_c.color).abs().max()) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# The rest of the public surface: trilinear, row bands, supersampling,
+# lines and points, pixel formats, resize, 2D primitives, constructors.
+# ---------------------------------------------------------------------------
+
+def _trilinear(rp):
+    return dataclasses.replace(rp, texture=ttex.Texture(
+        data=rp.texture.data, filter="trilinear", wrap=rp.texture.wrap))
+
+
+def _launched(kernels, what):
+    """Each kernel launched once (``fused`` counts K2's static and seeded
+    launches)."""
+    for k in kernels:
+        assert _cuda.launches[k] == 1, (what, k, dict(_cuda.launches))
+
+
+def _card_equals_cpu(fb_c, fb_g, what):
+    cg, dg = fb_g.color.cpu(), fb_g.depth.cpu()
+    assert bool(fb_c.color[..., 3].any()), what
+    assert bool(torch.isfinite(cg).all()), what
+    assert _equal(cg[..., 3], fb_c.color[..., 3]), what
+    assert _equal(dg, fb_c.depth), what
+    assert float((cg - fb_c.color).abs().max()) <= 1e-3, what
+
+
+@pytest.mark.parametrize("name,backend,kernels", [
+    ("config2", "auto", ("fe", "fused")),
+    ("config4", "auto", ("fe", "fused")),
+    ("config2", "pallas", ("fe", "visibility"))])
+def test_trilinear_render_on_card_matches_cpu(name, backend, kernels):
+    rp = _trilinear(_scene(name))
+    fb_c = render(rp, backend=backend)
+    _cuda.reset_launches()
+    fb_g = render(rp.to("cuda"), backend=backend)
+    torch.cuda.synchronize()
+    _launched(kernels, f"trilinear {name} {backend}")
+    _card_equals_cpu(fb_c, fb_g, f"trilinear {name} {backend}")
+
+
+@pytest.mark.parametrize("backend,shading,kernels", [
+    ("auto", "textured", ("fe", "fused")),
+    ("binned", "textured", ("fe", "fused")),
+    ("auto", "flat", ("fe", "binned_vis")),
+    ("pallas", "textured", ("fe", "visibility")),
+    ("reference", "textured", ())])
+def test_render_rows_on_card_matches_cpu(backend, shading, kernels):
+    """Rows [37, 137) of config 4 (3,000 triangles, 320x192) on the card
+    against the CPU's band and the card's own full frame."""
+    from software_renderer_tpu_torch import render_rows
+    rp = dataclasses.replace(_scene("config4"), shading=shading)
+    fb_c = render_rows(rp, 37, 100, backend=backend)
+    full = render(rp.to("cuda"), backend=backend)
+    _cuda.reset_launches()
+    fb_g = render_rows(rp.to("cuda"), 37, 100, backend=backend)
+    torch.cuda.synchronize()
+    _launched(kernels, f"rows {backend} {shading}")
+    _card_equals_cpu(fb_c, fb_g, f"rows {backend} {shading}")
+    assert _equal(fb_g.color[..., 3], full.color[37:137, :, 3])
+    assert _equal(fb_g.depth, full.depth[37:137])
+
+
+def test_render_msaa_on_card_matches_cpu():
+    from software_renderer_tpu_torch import render_msaa
+    rp = scenes.config4_many_objects(0.0, width=160, height=96,
+                                     triangles=3000, device="cpu")
+    fb_c = render_msaa(rp, 2)
+    _cuda.reset_launches()
+    fb_g = render_msaa(rp.to("cuda"), 2)
+    torch.cuda.synchronize()
+    _launched(("fe", "fused"), "msaa")
+    assert fb_g.color.shape == (96, 160, 4)
+    _card_equals_cpu(fb_c, fb_g, "msaa")
+
+
+def test_lines_and_points_on_card_match_cpu():
+    """The last writer wins on the card as on the CPU: duplicate pixels,
+    lines crossing, and the line and point primitives, bit for bit."""
+    from software_renderer_tpu_torch.ops import lines as tl
+    g = torch.Generator().manual_seed(12)
+    img = torch.rand((64, 96, 4), generator=g)
+    k = 5000
+    xs = torch.randint(-3, 99, (k,), generator=g, dtype=torch.int32)
+    ys = torch.randint(-3, 67, (k,), generator=g, dtype=torch.int32)
+    cols = torch.rand((k, 4), generator=g)
+    mask = torch.rand(k, generator=g) < 0.9
+    want = tl.scatter_points(img, xs, ys, cols, mask)
+    got = tl.scatter_points(*(t.cuda() for t in (img, xs, ys, cols, mask)))
+    assert _equal(got.cpu(), want)
+    screen = torch.round(torch.rand((300, 3), generator=g)
+                         * torch.tensor([120.0, 90.0, 1.0]) - 10.0)
+    lines = torch.randint(0, 300, (2000, 2), generator=g, dtype=torch.int32)
+    want = tl.draw_lines(img, screen, lines, cols[:300])
+    got = tl.draw_lines(img.cuda(), screen.cuda(), lines.cuda(),
+                        cols[:300].cuda())
+    assert _equal(got.cpu(), want)
+    for rp in (scenes.wireframe_cube(0.7, width=96, height=64, device="cpu"),
+               dataclasses.replace(scenes.reference_sphere(
+                   0.3, width=96, height=64, device="cpu"),
+                   primitive="vertices")):
+        fb_c = render(rp)
+        fb_g = render(rp.to("cuda"))
+        assert bool((fb_c.color[..., 3] > 0).any())
+        assert _equal(fb_g.color.cpu(), fb_c.color)
+        assert _equal(fb_g.depth.cpu(), fb_c.depth)
+
+
+def test_formats_resize_primitives_on_card_match_cpu():
+    from software_renderer_tpu_torch import (PIXEL_FORMATS, decode_pixels,
+                                             encode_pixels)
+    from software_renderer_tpu_torch.ops import primitives2d as p2
+    from software_renderer_tpu_torch.ops.resize import (resize_bilinear,
+                                                        resize_nearest)
+    g = torch.Generator().manual_seed(13)
+    c = torch.rand((48, 80, 4), generator=g) * 1.2 - 0.1
+    for fmt in PIXEL_FORMATS:
+        ec, eg = encode_pixels(c, fmt), encode_pixels(c.cuda(), fmt)
+        assert eg.dtype == ec.dtype, fmt
+        d = (eg.cpu().to(torch.float64) - ec.to(torch.float64)).abs().max()
+        assert float(d) <= (1 if fmt == "gray8" else 0), fmt
+        assert _equal(decode_pixels(ec.cuda(), fmt).cpu(),
+                      decode_pixels(ec, fmt)), fmt
+    for out in ((31, 47), (120, 200)):
+        b = resize_bilinear(c.cuda(), *out).cpu()
+        assert float((b - resize_bilinear(c, *out)).abs().max()) <= 1e-5
+        assert _equal(resize_nearest(c.cuda(), *out).cpu(),
+                      resize_nearest(c, *out))
+    draws = [lambda im: p2.draw_rect(im, 7.3, 11.0, 40.5, 20.25, (1, 0, 0)),
+             lambda im: p2.draw_circle(im, 40.0, 30.5, 17.0, (0, 0, 1)),
+             lambda im: p2.draw_line(im, 2.0, 40.0, 71.0, 3.0, (0, 1, 0)),
+             lambda im: p2.draw_triangle2d(im, (30, 2.5), (3, 41), (73, 40))]
+    for draw in draws:
+        assert _equal(draw(c.cuda()).cpu(), draw(c))
+
+
+def test_new_constructors_default_to_the_card():
+    import software_renderer_tpu_torch as srt
+    made = [srt.create_framebuffer(8, 4).color, srt.shapes.plane().positions,
+            scenes.rotating_triangle(0.3).mesh.positions,
+            scenes.wireframe_cube(0.3).transform,
+            scenes.intersecting_triangles(0.3).mesh.colors,
+            srt.RenderConfig().projection_matrix(),
+            srt.RenderConfig(projection="perspective").projection_matrix()]
+    assert all(t.device.type == "cuda" for t in made)

@@ -217,7 +217,8 @@ def test_import_leaves_jax_out():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "for m in ('ops.texture_kernel', 'parallel.batch',"
-        " 'parallel.sharding', 'tools.probe_dyngather'):\n"
+        " 'parallel.sharding', 'tools.probe_dyngather', 'ops.lines',"
+        " 'ops.primitives2d', 'ops.msaa', 'ops.resize', 'utils.config'):\n"
         "    assert p.__name__ + '.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'software_renderer_tpu'"

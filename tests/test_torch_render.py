@@ -134,15 +134,10 @@ def test_to_rgba8_matches_jax():
 
 
 @pytest.mark.parametrize("change", [
-    dict(primitive="line"), dict(transform=torch.eye(4).expand(2, 4, 4))])
+    dict(transform=torch.eye(4).expand(2, 4, 4))])
 def test_unported_paths_raise(change):
     rp = tscenes.config1_flat_cube(0.3, width=64, height=64, device="cpu")
     change = dict(change)
     backend = change.pop("backend", "auto")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         srt.render(dataclasses.replace(rp, **change), backend=backend)
-
-
-def test_trilinear_texture_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        srt.Texture(data=torch.zeros(4, 4, 3), filter="trilinear")
