@@ -73,7 +73,28 @@ the script exits non-zero without printing a result:
    vs CPU at small size; (d) the wireframe cube at 8 times, config 4's
    first 16,384 indices as lines and its 299,808 vertices as points, card
    frames equal to the CPU's bit for bit; (e) every pixel format, resize
-   to 1280x720 and 3840x2160 and the 2D primitives, card vs CPU.
+   to 1280x720 and 3840x2160 and the 2D primitives, card vs CPU;
+13. the host surface at config 4's full width, each part with the
+   counters reset just before it and read just after (K1 and K2 must
+   launch on each): (a) FrameLoop over 16 frames of bench.py's animation
+   with the PNG sink (native runtime, which must have built), the live
+   viewer (PresentServer on 127.0.0.1, its /frame.png fetched over HTTP)
+   and no sink, each decoded frame equal to to_rgba8 of the card frame
+   bit for bit, FPS and ms/frame of each, and one frame's PNG encode
+   native vs Python; (b) render_batch_chunked of 16 frames (vmap_chunk
+   4) equal to render_batch bit for bit, with the peak memory of each;
+   (c) render_sharded of the 8 main-path frames on make_mesh(2, 4) of
+   the one card with the split front-end on and off and on
+   make_mesh(1, 1): alpha and ids equal to render_batch's, depth and
+   color in the tie class (and whether bit for bit), the gathered
+   front-end and stream table equal to the unsplit K1 launch's bit for
+   bit, ms/frame of each;
+   (d) one texture_train_step in mode "1" on make_mesh(2, 2) against
+   mesh=None (loss within rel 1e-5, texels within 1e-5); (e) config 3
+   from the teapot generator at 1024x1024, card vs CPU at phase 6's
+   size; (f) profiling.trace around two main-path frames in spans, the
+   Chrome trace holding the spans and K2's launches; (g) bench_frame of
+   the main path (20 iterations) beside phase 5's ms/frame.
 
 Phase 3 also holds K1 with its perspective flag and K2's perspective
 plan (static, and seeded from K3 and K4 at 9 channels on the camera
@@ -99,14 +120,17 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
+import urllib.request
 
 import numpy as np
 import torch
 
 from software_renderer_tpu_torch import (PIXEL_FORMATS, _cuda,
                                          decode_pixels, encode_pixels,
-                                         render, render_msaa, render_rows)
+                                         render, render_msaa, render_rows,
+                                         runtime, to_rgba8)
 from software_renderer_tpu_torch.models import scenes
 from software_renderer_tpu_torch.models.mesh import Mesh
 from software_renderer_tpu_torch.ops import primitives2d as p2
@@ -125,12 +149,22 @@ from software_renderer_tpu_torch.ops.rasterize_kernel import (
     _poison_row, visibility_kernel, visibility_merge_kernel,
     visibility_merge_plain, visibility_pallas, visibility_plain)
 from software_renderer_tpu_torch.ops.shading import fused_output_channels
-from software_renderer_tpu_torch.parallel.batch import render_batch
-from software_renderer_tpu_torch.parallel.sharding import texture_train_step
-from software_renderer_tpu_torch.render import clip_inputs, triangle_inputs
+from software_renderer_tpu_torch.parallel.batch import (render_batch,
+                                                       render_batch_chunked)
+from software_renderer_tpu_torch.parallel.sharding import (
+    make_mesh, render_sharded, sharded_front, texture_train_step)
+from software_renderer_tpu_torch.render import (_pad_cols, clip_inputs,
+                                               planar_front_of,
+                                               planar_front_table_of,
+                                               triangle_inputs)
 from software_renderer_tpu_torch.tools import probe_dyngather as probe
 from software_renderer_tpu_torch.tools.probe_dyngather import graph_ms
 from software_renderer_tpu_torch.tools.sweep_binned import percentiles
+from software_renderer_tpu_torch.utils import image_io, profiling
+from software_renderer_tpu_torch.utils.config import RenderConfig
+from software_renderer_tpu_torch.utils.display import FrameLoop
+from software_renderer_tpu_torch.utils.present import PresentServer
+from software_renderer_tpu_torch.utils.timing import bench_frame
 
 # Shaded planes (kernel vs plain on the same card): both round every
 # operation the same way; only powf may differ from torch.pow by an ulp
@@ -210,6 +244,12 @@ RESIZE_SIZES = ((720, 1280), (2160, 3840))
 # Resize card vs CPU: one einsum in float32 whose summation order the two
 # libraries choose.
 RESIZE_TOL = 1e-5
+# Phase 13: frames through FrameLoop (each sink) and the chunked batch,
+# render_batch_chunked's group size, bench_frame's timed iterations.
+LOOP_FRAMES = 16
+CHUNK_FRAMES = 16
+VMAP_CHUNK = 4
+BENCH_ITERS = 20
 
 
 def sync():
@@ -633,7 +673,7 @@ def phase_main(dev, card):
     for k in ("fe", "fused", "visibility_merge", "resolve_merge",
               "fused_seeded"):
         assert launches[k] > 0, f"kernel {k} never launched on the main path"
-    return launches
+    return launches, sum(times) / len(times)
 
 
 def phase_small_reference(dev):
@@ -1616,6 +1656,353 @@ def phase_surface(dev, card):
     return launches
 
 
+def reset_counts():
+    sync()
+    _cuda.reset_launches()
+
+
+def read_counts(what, need=("fe", "fused")):
+    """The counters after a part (K1 and K2 must have launched)."""
+    sync()
+    counts = dict(_cuda.launches)
+    for k in need:
+        assert counts[k] > 0, f"{k} never launched on {what}"
+    return counts
+
+
+def phase_frame_loop(dev, card, tmp):
+    """13a: FrameLoop over LOOP_FRAMES frames of bench.py's animation at
+    config 4's full size with the PNG sink (native runtime), the live
+    viewer and no sink; the viewer's frame and the PNG files decode to
+    to_rgba8 of the card frame bit for bit."""
+    assert runtime.available(), "the native runtime did not build"
+    rp = scenes.config4_many_objects(0.0, device=dev)
+    base = rp.transform
+    used = []
+
+    def transform_fn(t):
+        used.append(bench_transform(base, t * 60.0))
+        return used[-1]
+
+    cfg = RenderConfig(width=rp.width, height=rp.height, backend="auto",
+                       time_step=1.0 / 60.0)
+    FrameLoop(lambda t: rp, transform_fn, cfg).run(2, out_dir=tmp)  # warm
+    img = to_rgba8(render(rp).color).cpu().numpy()
+    enc = {}
+    for name, write in (("native", runtime.write_png),
+                        ("python", image_io.write_png)):
+        t0 = time.perf_counter()
+        for _ in range(3):
+            write(os.path.join(tmp, f"enc_{name}.png"), img)
+        enc[name] = (time.perf_counter() - t0) / 3 * 1e3
+    assert np.array_equal(runtime.read_png(os.path.join(tmp,
+                                                        "enc_native.png")),
+                          img)
+    print(f"PNG encode of one {rp.width}x{rp.height} RGBA8 frame (host "
+          f"clock, mean of 3): native {enc['native']} ms, Python "
+          f"{enc['python']} ms", flush=True)
+    launches, out = {}, os.path.join(tmp, "frames")
+    for sink in ("png", "viewer", "none"):
+        loop = FrameLoop(lambda t: rp, transform_fn, cfg)
+        used.clear()
+        profiling.stage_times["frame"].clear()
+        reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        if sink == "viewer":
+            with PresentServer() as srv:
+                fps = loop.run(LOOP_FRAMES, present=srv)
+                with urllib.request.urlopen(srv.url + "frame.png",
+                                            timeout=30) as r:
+                    png = r.read()
+        else:
+            fps = loop.run(LOOP_FRAMES,
+                           out_dir=out if sink == "png" else None)
+        end.record()
+        launches[sink] = read_counts(f"FrameLoop ({sink})")
+        assert launches[sink]["fe"] == LOOP_FRAMES, launches[sink]
+        ms = start.elapsed_time(end) / LOOP_FRAMES
+        stage = [round(x * 1e3, 3) for x in profiling.stage_times["frame"]]
+        print(f"FrameLoop, sink {sink}: {LOOP_FRAMES} frames of config4 "
+              f"{rp.width}x{rp.height}: {fps} FPS (host clock, sink "
+              f"included), {ms} ms/frame (CUDA events, {card}); "
+              f"stage_times['frame'] ms {stage}; launches "
+              f"{json.dumps(launches[sink])}", flush=True)
+        if sink == "viewer":
+            want = to_rgba8(render(dataclasses.replace(
+                rp, transform=used[-1])).color).cpu()
+            got = torch.from_numpy(image_io.decode_png(png))
+            assert_bit_equal(got, want, "viewer frame vs to_rgba8")
+            print(f"  viewer: /frame.png of frame {len(used) - 1} equals "
+                  f"to_rgba8 of the card frame bit for bit", flush=True)
+        if sink == "png":
+            files = sorted(os.listdir(out))
+            assert len(files) == LOOP_FRAMES, files
+            for i in (0, LOOP_FRAMES // 2, LOOP_FRAMES - 1):
+                want = to_rgba8(render(dataclasses.replace(
+                    rp, transform=used[i])).color).cpu()
+                got = torch.from_numpy(runtime.read_png(
+                    os.path.join(out, files[i])))
+                assert_bit_equal(got, want, f"PNG frame {i} vs to_rgba8")
+            print(f"  PNG: frames 0, {LOOP_FRAMES // 2} and "
+                  f"{LOOP_FRAMES - 1} decode to to_rgba8 of the card frame "
+                  f"bit for bit", flush=True)
+    return launches
+
+
+def phase_chunked(dev, card):
+    """13b: render_batch_chunked of CHUNK_FRAMES frames (vmap_chunk
+    VMAP_CHUNK) equals render_batch bit for bit; peak memory of each."""
+    rp = scenes.config4_many_objects(0.0, device=dev)
+    ts = torch.stack([bench_transform(rp.transform, i)
+                      for i in range(CHUNK_FRAMES)])
+    out, peak, ms, launches = {}, {}, {}, {}
+    for name, fn in (("render_batch", lambda: render_batch(rp, ts)),
+                     ("render_batch_chunked", lambda: render_batch_chunked(
+                         rp, ts, vmap_chunk=VMAP_CHUNK))):
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base_mem = torch.cuda.memory_allocated(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out[name] = fn()
+        end.record()
+        launches[name] = read_counts(name)
+        peak[name] = torch.cuda.max_memory_allocated(dev) - base_mem
+        ms[name] = start.elapsed_time(end) / CHUNK_FRAMES
+        if name == "render_batch_chunked":
+            ref = out["render_batch"]
+            assert_bit_equal(out[name].color, ref.color, "chunked color")
+            assert_bit_equal(out[name].depth, ref.depth, "chunked depth")
+        print(f"{name}: {CHUNK_FRAMES} frames of config4 {rp.width}x"
+              f"{rp.height}: peak memory above the scene "
+              f"{peak[name] / 2**20} MiB (max_memory_allocated), "
+              f"{ms[name]} ms/frame (CUDA events, {card}); launches "
+              f"{json.dumps(launches[name])}", flush=True)
+    print(f"  render_batch_chunked(vmap_chunk={VMAP_CHUNK}) equals "
+          f"render_batch bit for bit", flush=True)
+    return launches
+
+
+def band_ids(rp, ps, y0, rows):
+    """Triangle ids of rows [y0, y0 + rows) from K2 (fused_pipeline) over
+    the front-end ``ps``, as render's main path computes them."""
+    _, chans, attrs, prm, lit, tex = triangle_inputs(rp, ps)
+    attrs = _pad_cols(attrs, ps.num_triangles)
+    return tb.fused_pipeline(ps, attrs, prm, chans=chans, has_light=lit,
+                             has_texture=tex, width=rp.width, height=rows,
+                             y_start=y0, pair_budget_factor=BUDGET)[1]
+
+
+def phase_sharded(dev, card):
+    """13c: render_sharded of the MAIN_FRAMES on make_mesh(2, 4) of the
+    one card (split front-end on and off) and on make_mesh(1, 1): alpha
+    and ids equal render_batch's, depth and color in the tie class (and
+    whether bit for bit); the gathered front-end and stream table equal
+    the unsplit K1 launch's bit for bit. Each mesh is timed twice, in
+    the order A B C C B A."""
+    rp = scenes.config4_many_objects(0.0, device=dev)
+    ts = torch.stack([bench_transform(rp.transform, i) for i in MAIN_FRAMES])
+    ref = render_batch(rp, ts)
+    meshes = {"2x4 split": (make_mesh(2, 4, [dev] * 8), True),
+              "2x4 unsplit": (make_mesh(2, 4, [dev] * 8), False),
+              "1x1": (make_mesh(1, 1), True)}
+    render_sharded(rp, ts[:2], meshes["2x4 split"][0])  # warm-up
+    launches, times = {}, {name: [] for name in meshes}
+    # Each mesh twice, in the order A B C C B A, so that neither design
+    # gains from running later in the call.
+    for name in list(meshes) + list(reversed(meshes)):
+        mesh, split = meshes[name]
+        reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fb = render_sharded(rp, ts, mesh, shard_frontend=split)
+        end.record()
+        launches[name] = read_counts(f"render_sharded {name}")
+        times[name].append(start.elapsed_time(end) / len(MAIN_FRAMES))
+        if len(times[name]) == 2:
+            print(f"render_sharded {name}: ms/frame (CUDA events, {card}) "
+                  f"in the runs A B C C B A: {times[name]}", flush=True)
+            continue
+        assert bool(torch.isfinite(fb.color).all())
+        assert_bit_equal(fb.color[..., 3], ref.color[..., 3],
+                         f"sharded {name} alpha")
+        n_diff = tie_class_diff(fb.color, ref.color, fb.depth, ref.depth,
+                                atol=1e-6)
+        bit = bool((fb.color == ref.color).all()) and bool(
+            (fb.depth == ref.depth).all())
+        print(f"render_sharded {name}: {len(MAIN_FRAMES)} frames of "
+              f"config4 {rp.width}x{rp.height}, mesh {mesh.shape}: "
+              f"{times[name][0]} ms/frame (CUDA events, {card}); alpha "
+              f"exact, depth and color in the tie class ({n_diff} pixels "
+              f"differ); bit-equal {bit}; launches "
+              f"{json.dumps(launches[name])}", flush=True)
+        if name != "1x1":
+            profile_per_frame(lambda: render_sharded(
+                rp, ts, mesh, shard_frontend=split), len(MAIN_FRAMES),
+                f"{len(MAIN_FRAMES)} frames, render_sharded {name}", card)
+    rows = rp.height // 4
+    for i, t in enumerate(ts):
+        p = dataclasses.replace(rp, transform=t)
+        full = planar_front_of(p)
+        table_rows, (table, n_chans, _) = planar_front_table_of(p)
+        gathered, (g_table, g_chans, poison) = sharded_front(
+            rp.to, t, [dev] * 4)[dev]
+        n = full.num_triangles
+        for f in dataclasses.fields(fe.PlanarSetup):
+            g = getattr(gathered, f.name)
+            assert_bit_equal(g[:n], getattr(full, f.name),
+                             f"gathered front {f.name}")
+            assert_bit_equal(g[:n], getattr(table_rows, f.name),
+                             f"gathered front {f.name} vs the table launch")
+        assert g_chans == n_chans
+        assert_bit_equal(g_table[:n], table, "gathered stream table")
+        assert not bool(gathered.valid[n:].any())
+        assert_bit_equal(g_table[n:], poison.expand(len(g_table) - n, -1),
+                         "gathered stream table padding")
+        ids_full = band_ids(p, full, 0, p.height)
+        for r in range(4):
+            y0 = r * rows
+            for what, ps in (("split", gathered), ("unsplit", full)):
+                assert_bit_equal(band_ids(p, ps, y0, rows),
+                                 ids_full[y0:y0 + rows],
+                                 f"sharded ids {what} frame {i} band {r}")
+    print(f"  gathered front-end and stream table ({gathered.num_triangles} "
+          f"rows over 4 row shards, {n_chans} channels) equal the unsplit "
+          f"K1 launch's ({n}) bit for bit on every frame; band ids equal "
+          f"the full frame's", flush=True)
+    return launches
+
+
+def phase_train_mesh(dev, card):
+    """13d: one texture_train_step in mode "1" on make_mesh(2, 2) of the
+    one card against mesh=None (phase 9's frames): loss within rel
+    TRAIN_TOL, texels within TRAIN_TOL."""
+    rp = scenes.config4_many_objects(0.0, device=dev)
+    ts = torch.stack([bench_transform(rp.transform, i)
+                      for i in TRAIN_FRAMES])
+    targets = render_batch(rp, ts).color
+    tex0 = torch.full_like(rp.texture.data, 0.5)
+    ttex.TEX_WINDOWED = "1"
+    out, launches = {}, {}
+    for name, mesh in (("none", None),
+                       ("2x2", make_mesh(2, 2, [dev] * 4))):
+        reset_counts()
+        t0 = time.perf_counter()
+        out[name] = texture_train_step(tex0, rp, ts, targets, mesh,
+                                       lr=TRAIN_LR)
+        launches[name] = read_counts(f"training, mesh {name}",
+                                     ("fe", "fused", "sampler"))
+        print(f"training step, mesh {name}, SR_TEX_WINDOWED=1: loss "
+              f"{float(out[name][1])}, {(time.perf_counter() - t0) * 1e3} "
+              f"ms (host clock to synchronize, {card}); launches "
+              f"{json.dumps(launches[name])}", flush=True)
+    ttex.TEX_WINDOWED = "0"
+    (tex_a, loss_a), (tex_b, loss_b) = out["none"], out["2x2"]
+    rel = abs(float(loss_b) - float(loss_a)) / float(loss_a)
+    diff = max_err(tex_b, tex_a)
+    print(f"  2x2 mesh vs none: loss rel {rel}, texels max |d| {diff}; "
+          f"texels moved up to {float((tex_a - tex0).abs().max())}",
+          flush=True)
+    assert rel <= TRAIN_TOL and diff <= TRAIN_TOL, (rel, diff)
+    return launches
+
+
+def phase_teapot(dev, card):
+    """13e: config 3 from the teapot generator (assets/teapot.obj
+    ignored) at 1024x1024 through render; card vs CPU at phase 6's
+    size."""
+    obj = scenes.TEAPOT_OBJ
+    scenes.TEAPOT_OBJ = obj.with_name("no_such_teapot.obj")
+    try:
+        rp = scenes.config3_phong_mesh(0.3, device=dev)
+        small_c = scenes.config3_phong_mesh(0.3, width=320, height=192,
+                                            device="cpu")
+    finally:
+        scenes.TEAPOT_OBJ = obj
+    reset_counts()
+    fb = render(rp)
+    launches = read_counts("config 3 from the generator")
+    cov = float(fb.color[..., 3].mean())
+    assert bool(torch.isfinite(fb.color).all()) and cov > 0
+    fb_c = render(small_c)
+    fb_g = render(small_c.to(dev))
+    sync()
+    assert_bit_equal(fb_g.color[..., 3].cpu(), fb_c.color[..., 3],
+                     "teapot small alpha")
+    assert_bit_equal(fb_g.depth.cpu(), fb_c.depth, "teapot small depth")
+    err = max_err(fb_g.color.cpu(), fb_c.color)
+    assert err <= 1e-3, f"teapot small color differs by {err}"
+    print(f"config 3 from teapot_mesh(9): T={rp.mesh.indices.numel() // 3}, "
+          f"{rp.width}x{rp.height}, coverage {cov}, finite; card == CPU at "
+          f"320x192 (alpha and depth bit for bit, color max |d| {err}); "
+          f"launches {json.dumps(launches)}", flush=True)
+    return launches
+
+
+def phase_trace(dev, card, tmp):
+    """13f: profiling.trace around two main-path frames, each in a span:
+    the Chrome trace holds the spans and K2's launches."""
+    rp = scenes.config4_many_objects(0.0, device=dev)
+    passes = [dataclasses.replace(rp, transform=bench_transform(
+        rp.transform, i)) for i in (0, 1)]
+    reset_counts()
+    with profiling.trace(os.path.join(tmp, "trace")) as log_dir:
+        for i, p in enumerate(passes):
+            with profiling.span(f"smoke_frame_{i}"):
+                render(p)
+        sync()
+    launches = read_counts("the traced frames")
+    path = os.path.join(log_dir, profiling.TRACE_FILE)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    spans = [n for n in names if n.startswith("smoke_frame_")]
+    k2 = [e for e in events if e.get("cat") == "kernel"
+          and "walk_kernel<true" in e.get("name", "")]
+    print(f"trace: {path} ({os.path.getsize(path)} bytes, {len(events)} "
+          f"events): spans {sorted(set(spans))}, {len(k2)} K2 kernel "
+          f"events; launches {json.dumps(launches)}", flush=True)
+    assert {"smoke_frame_0", "smoke_frame_1"} <= set(spans), spans
+    assert len(k2) >= 2, "no K2 launch in the trace"
+    return launches
+
+
+def phase_bench(dev, card, main_ms):
+    """13g: bench_frame of the main path (BENCH_ITERS frames)."""
+    rp = scenes.config4_many_objects(0.0, device=dev)
+    n = BENCH_ITERS + 3
+    passes = [dataclasses.replace(rp, transform=bench_transform(
+        rp.transform, i)) for i in range(n)]
+    reset_counts()
+    res = bench_frame(render, lambda i: (passes[i % n],),
+                      name="config4 main path",
+                      triangles=rp.mesh.indices.numel() // 3,
+                      iters=BENCH_ITERS)
+    launches = read_counts("bench_frame")
+    print(f"bench_frame ({card}): {res} ; BenchResult "
+          f"{json.dumps(dataclasses.asdict(res))}; phase 5's ms/frame "
+          f"(CUDA events) {main_ms}", flush=True)
+    return launches
+
+
+def phase_host(dev, card, main_ms):
+    """Phase 13 (the module docstring): each part with the counters reset
+    just before it and read just after."""
+    with tempfile.TemporaryDirectory(prefix="sr_smoke_") as tmp:
+        launches = {"loop": phase_frame_loop(dev, card, tmp)}
+        launches["chunked"] = phase_chunked(dev, card)
+        launches["sharded"] = phase_sharded(dev, card)
+        launches["train_mesh"] = phase_train_mesh(dev, card)
+        launches["teapot"] = phase_teapot(dev, card)
+        launches["trace"] = phase_trace(dev, card, tmp)
+        launches["bench"] = phase_bench(dev, card, main_ms)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1641,7 +2028,7 @@ def main():
     sync()
     phase_spill(dev)                                         # phase 4
     sync()
-    launches = phase_main(dev, card)                         # phase 5
+    launches, main_ms = phase_main(dev, card)                # phase 5
     sync()
     phase_small_reference(dev)                               # phase 6
     sync()
@@ -1659,6 +2046,10 @@ def main():
     phase_surface(dev, card)                                 # phase 12
     sync()
     print(f"phase 12 took {time.perf_counter() - t12:.1f} s", flush=True)
+    t13 = time.perf_counter()
+    phase_host(dev, card, main_ms)                           # phase 13
+    sync()
+    print(f"phase 13 took {time.perf_counter() - t13:.1f} s", flush=True)
 
     src = "software_renderer_tpu_torch/csrc/"
     meta = {

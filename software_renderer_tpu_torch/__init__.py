@@ -3,7 +3,9 @@
 
 Same RenderPass in, same framebuffer out: triangles on every backend,
 row bands, supersampling, lines and points, and the pixel formats, mesh
-helpers and render config of the JAX package's public surface. On CUDA
+helpers and render config of the JAX package's public surface; around
+them the frame loop and live viewer (utils/), the native OBJ/PNG runtime
+(runtime/), and chunked and sharded batches (parallel/). On CUDA
 tensors the triangle path runs hand-written Hopper kernels (csrc/*.cu,
 built with nvcc at first use); on CPU tensors it runs their plain
 PyTorch versions. This package imports neither JAX nor the JAX package,

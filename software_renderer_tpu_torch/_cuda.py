@@ -26,7 +26,9 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent / "_build"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parent / "_build"
+# Where the built libraries go (utils/timing.py enable_compile_cache).
+BUILD_DIR = DEFAULT_BUILD_DIR
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
               "-fPIC")
@@ -95,7 +97,7 @@ def build(verbose: bool = False) -> Path:
     so = library_path()
     if so.exists():
         return so
-    BUILD_DIR.mkdir(exist_ok=True)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
     srcs = [s for s in _sources() if s.suffix == ".cu"]

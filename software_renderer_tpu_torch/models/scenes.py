@@ -2,9 +2,9 @@
 RenderPass`` functions on a chosen device (the card unless the caller
 passes ``device="cpu"``; see device.py).
 
-Config 3 reads the Utah teapot from the checked-in assets/teapot.obj.
-The JAX package regenerates it from the Newell patches when the file is
-missing; that generator is not ported, so here a missing file raises.
+Config 3 reads the Utah teapot from the checked-in assets/teapot.obj,
+and regenerates it from the Newell patches (models/teapot.py) when the
+file is missing, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from ..render import RenderPass
 from . import shapes
 from .mesh import Mesh, mesh_from_numpy
 from .obj import load_obj
+from .teapot import teapot_mesh
 
 TEAPOT_OBJ = Path(__file__).resolve().parents[2] / "assets" / "teapot.obj"
 
@@ -149,12 +150,24 @@ def config2_textured_cube(time, width: int = 512, height: int = 512,
                       model=model, flat_color=torch.ones(3, device=device))
 
 
+def _teapot_mesh(device=None) -> Mesh:
+    """Config 3's teapot on ``device``: assets/teapot.obj through the OBJ
+    reader, or, when the file is missing, ``teapot_mesh(9)`` (5,112
+    triangles) with abs(normal) colors, as the JAX package builds it."""
+    device = or_default(device)
+    if TEAPOT_OBJ.exists():
+        return load_obj(str(TEAPOT_OBJ), device=device)
+    p, t, n, uv = teapot_mesh(9)
+    return mesh_from_numpy(p, t.reshape(-1), colors=np.abs(n), normals=n,
+                           uvs=uv, device=device)
+
+
 def config3_phong_mesh(time, width: int = 1024, height: int = 1024,
                        device=None) -> RenderPass:
-    """Config 3: the Utah teapot OBJ (~5k triangles), per-pixel Phong at
+    """Config 3: the Utah teapot (~5k triangles), per-pixel Phong at
     1024^2."""
     device = or_default(device)
-    mesh = load_obj(str(TEAPOT_OBJ), device=device)
+    mesh = _teapot_mesh(device)
     q = tf.quat_from_axis_angle(_axis([1.0, 0.7, 0.2], device),
                                 torch.as_tensor(time, dtype=torch.float32,
                                                 device=device))

@@ -93,11 +93,6 @@ class RenderPass:
             flat_color=self.flat_color.to(device), model=mv(self.model))
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP.md {item})")
-
-
 def _normal_matrix(rp: RenderPass):
     return None if rp.model is None else inverse_transpose_3x3(
         rp.model[:3, :3])
@@ -143,18 +138,21 @@ def triangle_inputs(rp: RenderPass, ps: Optional[fe.PlanarSetup] = None):
     return (ps, *shading_inputs(rp))
 
 
-def shading_inputs(rp: RenderPass):
-    """:func:`triangle_inputs` without the front-end."""
+def shading_inputs(rp: RenderPass, with_attrs: bool = True, tris=None):
+    """:func:`triangle_inputs` without the front-end: the attribute
+    columns of the triangles ``tris`` ([T', 3] vertex indices, by default
+    the mesh's), or None without ``with_attrs``."""
     mesh = rp.mesh
-    tris = mesh.triangles().long()
+    if tris is None:
+        tris = mesh.triangles().long()
     has_light = rp.light is not None and mesh.normals is not None
     has_texture = rp.shading == "textured"
     if has_texture and (mesh.uvs is None or rp.texture is None):
         raise ValueError("'textured' shading requires uvs + texture")
     chans = attribute_channels(rp.shading, mesh.colors is not None,
                                has_light)
-    attrs = []
-    for name, _ in chans:
+    attrs = [] if with_attrs else None
+    for name, _ in chans if with_attrs else ():
         if name == "rgb":
             attrs += fe.attr_corner_cols(mesh.colors[tris])
         elif name == "uv":
@@ -173,6 +171,49 @@ def shading_inputs(rp: RenderPass):
     params = shading_params(rp.light, flat_color=rp.flat_color,
                             device=rp.mesh.positions.device)
     return chans, attrs, params, has_light, has_texture
+
+
+# The stream table's triangle-id column (ops/frontend.py
+# ``stream_table_planar``).
+_TABLE_ID = 10
+
+
+def planar_front_table_of(rp: RenderPass, start: int = 0,
+                          count: Optional[int] = None):
+    """The main path's front-end launch (:func:`ops.frontend.
+    planar_front_table`, with the pass's attribute channels as
+    :func:`render_triangles` plans them) over triangles
+    [start, start + count) of a triangle RenderPass, all of them by
+    default: (PlanarSetup, (table, n_channels, poison)).
+
+    Triangles past the mesh are zeros (degenerate, so invalid: the
+    poison row). The table's id column holds the mesh's triangle ids
+    (``start`` plus the local index), so the slices of a split
+    front-end concatenate into the whole front-end's setup and table
+    (the kernel is per-triangle)."""
+    tris = rp.mesh.triangles().long()
+    count = tris.shape[0] - start if count is None else count
+    assert start + count < 2 ** 24, "ids are exact float32 integers"
+    tris = tris[start:start + count]
+    chans, attrs, *_ = shading_inputs(rp, tris=tris)
+
+    def pad(x):
+        # x zero-padded to count rows.
+        if x.shape[0] == count:
+            return x
+        return torch.nn.functional.pad(
+            x, (0, 0) * (x.dim() - 1) + (0, count - x.shape[0]))
+
+    corners = pad(rp.mesh.positions[tris])
+    cols = [tuple(pad(c) for c in chan) for chan in attrs]
+    ps, table, n_chans, poison = fe.planar_front_table(
+        fe.corner_cols(corners), rp.transform, cols,
+        rp.width, rp.height, cull_backfaces=rp.cull_backfaces,
+        perspective=rp.perspective_correct and bool(chans))
+    if start:
+        ids = table[:, _TABLE_ID]
+        table[:, _TABLE_ID] = torch.where(ids >= 0, ids + float(start), ids)
+    return ps, (table, n_chans, poison)
 
 
 _FUSED_GRAD_MSG = (
@@ -278,7 +319,8 @@ def _pad_cols(attrs, t: int):
 def render_triangles(rp: RenderPass, backend: str = "auto",
                      y_start: Optional[int] = None,
                      rows: Optional[int] = None,
-                     front: Optional[fe.PlanarSetup] = None) -> Framebuffer:
+                     front: Optional[fe.PlanarSetup] = None,
+                     table=None) -> Framebuffer:
     """The triangle path on any backend (``auto`` is ``binned``, as in the
     JAX package), with or without the near-plane clip and
     perspective-correct attributes; optionally only the rows
@@ -294,13 +336,18 @@ def render_triangles(rp: RenderPass, backend: str = "auto",
 
     ``front``: a precomputed :class:`ops.frontend.PlanarSetup` of the
     mesh's triangles (zero-padded past them allowed: padding is invalid)
-    used instead of the front-end; its stream table is built from it
-    (the front-end kernel does not run). Requires ``clip_near=False``.
+    used instead of the front-end (the front-end kernel does not run).
+    Requires ``clip_near=False``. ``table``: the (table, n_channels,
+    poison) stream table written with ``front``
+    (:func:`planar_front_table_of`), used by ``auto``/``binned``; without
+    it the table is built from ``front`` in torch ops.
     """
     if backend not in ("auto", "binned", "pallas", "reference"):
         raise ValueError(f"unknown backend {backend!r}")
     if front is not None and rp.clip_near:
         raise ValueError("a precomputed front requires clip_near=False")
+    if table is not None and front is None:
+        raise ValueError("a stream table comes with its front")
     out_h = rp.height if rows is None else int(rows)
     y0 = 0 if y_start is None else int(y_start)
     mesh = rp.mesh
@@ -333,7 +380,8 @@ def render_triangles(rp: RenderPass, backend: str = "auto",
                       w_tri=w_c if rp.perspective_correct else None,
                       corner_attrs=corner_attrs)
         return Framebuffer(color=color, depth=depth)
-    chans, attrs, params, has_light, has_texture = shading_inputs(rp)
+    chans, attrs, params, has_light, has_texture = shading_inputs(
+        rp, with_attrs=table is None)
     # The JAX package's budgets for the banded layout: culled scenes emit
     # about half the pairs, and bands emit ~1.3-1.5x more pairs than
     # whole tiles.
@@ -343,7 +391,7 @@ def render_triangles(rp: RenderPass, backend: str = "auto",
               pair_budget_factor=budget)
     plan = dict(chans=chans, has_light=has_light, has_texture=has_texture,
                 perspective=persp)
-    n_attr = len(attrs)
+    n_attr = sum(size for _, size in chans)
 
     if rp.clip_near:
         def geometry(corners, transform, *xs):
@@ -363,21 +411,31 @@ def render_triangles(rp: RenderPass, backend: str = "auto",
     elif front is not None:
         names = [f.name for f in dataclasses.fields(fe.PlanarSetup)]
 
+        if table is not None and table[1] != n_attr + persp:
+            raise ValueError(f"the stream table has {table[1]} channels, "
+                             f"this pass {n_attr + persp}")
+
         def geometry(*xs):
-            # xs: the front's columns, 3 columns per attribute channel,
-            # the shading row. The stream table is built from the front.
+            # xs: the front's columns, 3 columns per attribute channel
+            # (none with a table), the shading row. Without a table the
+            # stream table is built from the front.
             ps = fe.PlanarSetup(*xs[:len(names)])
+            if not chans:
+                return binned_pipeline(ps, None, stream_table=table,
+                                       **kw)[:2]
+            if table is not None:
+                return fused_pipeline(ps, None, xs[-1], stream_table=table,
+                                      **plan, **kw)
             cols = [tuple(xs[len(names) + 3 * i:len(names) + 3 * i + 3])
                     for i in range(n_attr)]
-            if not chans:
-                return binned_pipeline(ps, None, **kw)[:2]
             if persp:
                 cols = fe.perspective_chan_vals(cols, ps)
             return fused_pipeline(ps, cols, xs[-1], **plan, **kw)
 
         inputs = [getattr(front, n) for n in names]
-        inputs += [c for cols in _pad_cols(attrs, front.num_triangles)
-                   for c in cols]
+        if table is None:
+            inputs += [c for cols in _pad_cols(attrs, front.num_triangles)
+                       for c in cols]
     else:
         def geometry(*xs):
             # xs: 9 corner columns, the transform, 3 columns per attribute
@@ -451,22 +509,25 @@ def render_points(rp: RenderPass) -> Framebuffer:
 
 def render_rows(rp: RenderPass, y_start: int, rows: int,
                 backend: str = "auto",
-                front: Optional[fe.PlanarSetup] = None) -> Framebuffer:
+                front: Optional[fe.PlanarSetup] = None,
+                table=None) -> Framebuffer:
     """Rows [y_start, y_start + rows) of the frame with the full frame's
-    semantics (:func:`render_triangles`); ``front`` as it takes it."""
+    semantics (:func:`render_triangles`); ``front`` and ``table`` as it
+    takes them."""
     if rp.primitive != "triangle":
         raise NotImplementedError("row slicing applies to the triangle path")
     return render_triangles(rp, backend, y_start=y_start, rows=rows,
-                            front=front)
+                            front=front, table=table)
 
 
 def render(rp: RenderPass, backend: str = "auto") -> Framebuffer:
     """Render one frame: triangles on ``backend``, or lines or points
     (which take no backend)."""
-    if rp.transform.dim() != 2:
-        raise _not_ported(
-            f"a batch of transforms {tuple(rp.transform.shape)}",
-            "Queue 1 item 9, batching")
+    if tuple(rp.transform.shape) != (4, 4):
+        raise TypeError(
+            f"render takes one [4, 4] transform, got "
+            f"{tuple(rp.transform.shape)}; render a batch of transforms "
+            f"with parallel.batch.render_batch")
     if rp.primitive == "triangle":
         return render_triangles(rp, backend)
     if rp.primitive == "line":

@@ -44,7 +44,9 @@ from software_renderer_tpu_torch.ops.rasterize_kernel import (
 from software_renderer_tpu_torch.ops.rasterize_ref import visibility_ref
 from software_renderer_tpu_torch.ops.resolve import (barycentrics_at_pixels,
                                                      interpolate_attribute)
+from software_renderer_tpu_torch.parallel.sharding import make_mesh
 from software_renderer_tpu_torch.render import planar_front_of
+from software_renderer_tpu_torch.utils.device import DeviceInfo
 
 torch.set_num_threads(1)
 CPU = dict(device="cpu")
@@ -267,6 +269,14 @@ def test_new_kernel_wrappers_run_plain_on_cpu():
         assert torch.equal(ib, ik) and torch.equal(zb, zk)
 
 
+def _teapot_fallback_scene():
+    """Config 3 built from the teapot generator (no OBJ asset)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tscenes, "TEAPOT_OBJ", tscenes.TEAPOT_OBJ.with_name(
+            "missing.obj"))
+        return tscenes.config3_phong_mesh(0.3, width=64, height=64)
+
+
 @pytest.mark.parametrize("build", [
     lambda: tscenes.config1_flat_cube(0.3, width=64, height=64),
     lambda: tscenes.config4_many_objects(0.0, width=64, height=64,
@@ -294,7 +304,10 @@ def test_new_kernel_wrappers_run_plain_on_cpu():
     lambda: tscenes.wireframe_cube(0.3),
     lambda: tscenes.intersecting_triangles(0.3),
     lambda: srt.RenderConfig().projection_matrix(),
-    lambda: srt.RenderConfig(projection="perspective").projection_matrix()],
+    lambda: srt.RenderConfig(projection="perspective").projection_matrix(),
+    lambda: make_mesh(1, 1),
+    lambda: DeviceInfo.query(),
+    lambda: _teapot_fallback_scene()],
     ids=["scene", "config4", "load_obj", "render_pass", "setup",
          "mesh_from_numpy", "shape", "checkerboard", "light",
          "reference_projection", "translation_matrix", "scale_matrix",
@@ -302,12 +315,14 @@ def test_new_kernel_wrappers_run_plain_on_cpu():
          "perspective", "look_at", "shading_params", "create_framebuffer",
          "plane", "rotating_triangle", "wireframe_cube",
          "intersecting_triangles", "config_projection",
-         "config_perspective"])
+         "config_perspective", "make_mesh", "device_info",
+         "teapot_fallback"])
 def test_scenes_default_to_the_card(monkeypatch, build):
-    """With no card, a scene, mesh, texture, light, OBJ or convert
-    function, or a transform constructor whose arguments hold no tensor,
-    given no device raises and names the way to ask for the CPU; nothing
-    falls back quietly."""
+    """With no card, a scene (config 3 from the teapot generator too),
+    mesh, texture, light, OBJ or convert function, a transform
+    constructor whose arguments hold no tensor, the default device mesh
+    or the default device's info, given no device raises and names the
+    way to ask for the CPU; nothing falls back quietly."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         build()

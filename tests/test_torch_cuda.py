@@ -1200,3 +1200,101 @@ def test_new_constructors_default_to_the_card():
             srt.RenderConfig().projection_matrix(),
             srt.RenderConfig(projection="perspective").projection_matrix()]
     assert all(t.device.type == "cuda" for t in made)
+
+
+def _config4_loop_scene(t):
+    """Config 4 cut to 3,000 triangles at 256x192 on the card, bench.py's
+    rotation at t seconds."""
+    rp = scenes.config4_many_objects(0.0, width=256, height=192,
+                                     triangles=3000)
+    axis = tf.normalize(torch.tensor([1.0, 1.0, 0.0], device="cuda"))
+    q = tf.quat_from_axis_angle(axis, torch.tensor(t, device="cuda"))
+    return dataclasses.replace(rp, transform=rp.transform
+                               @ tf.rotation_matrix(q))
+
+
+def test_frame_loop_and_viewer_on_card(tmp_path):
+    """FrameLoop on the card with the PNG sink (native runtime), the
+    viewer and no sink: K1 and K2 launch every frame; the PNG files and
+    the viewer's frame decode to to_rgba8 of the card frame."""
+    import urllib.request
+    from software_renderer_tpu_torch import runtime, to_rgba8
+    from software_renderer_tpu_torch.utils.config import RenderConfig
+    from software_renderer_tpu_torch.utils.display import FrameLoop
+    from software_renderer_tpu_torch.utils.image_io import decode_png
+    from software_renderer_tpu_torch.utils.present import PresentServer
+    cfg = RenderConfig(width=256, height=192, time_step=0.5)
+    want = [to_rgba8(render(_config4_loop_scene(0.5 * i)).color).cpu()
+            for i in range(3)]
+    for sink in ("png", "viewer", None):
+        loop = FrameLoop(_config4_loop_scene, config=cfg)
+        _cuda.reset_launches()
+        if sink == "viewer":
+            with PresentServer() as srv:
+                loop.run(3, present=srv)
+                with urllib.request.urlopen(srv.url + "frame.png",
+                                            timeout=10) as r:
+                    png = r.read()
+            assert _equal(torch.from_numpy(decode_png(png)), want[2])
+        else:
+            loop.run(3, out_dir=str(tmp_path) if sink else None)
+        torch.cuda.synchronize()
+        assert _cuda.launches["fe"] == 3 and _cuda.launches["fused"] == 3
+    assert runtime.available()
+    for i in range(3):
+        got = runtime.read_png(str(tmp_path / f"frame_{i:05d}.png"))
+        assert _equal(torch.from_numpy(got), want[i])
+
+
+def test_batches_and_sharded_bands_on_card():
+    """render_batch_chunked equals render_batch bit for bit; render_sharded
+    on a 2 x 2 mesh of the one card (split front-end on and off) and on
+    make_mesh(1, 1) equals it too, and the gathered front-end and stream
+    table equal the unsplit K1 launch's (K1 is per-triangle)."""
+    from software_renderer_tpu_torch.parallel.batch import (
+        render_batch_chunked)
+    from software_renderer_tpu_torch.parallel.sharding import (
+        make_mesh, render_sharded, sharded_front)
+    from software_renderer_tpu_torch.render import planar_front_table_of
+    rp = _config4_loop_scene(0.0)
+    ts = torch.stack([_config4_loop_scene(0.5 * i).transform
+                      for i in range(4)])
+    ref = render_batch(rp, ts)
+    fb = render_batch_chunked(rp, ts, vmap_chunk=2)
+    assert _equal(fb.color, ref.color) and _equal(fb.depth, ref.depth)
+    cuda0 = torch.device("cuda", 0)
+    for mesh, split in ((make_mesh(2, 2, [cuda0] * 4), True),
+                        (make_mesh(2, 2, [cuda0] * 4), False),
+                        (make_mesh(1, 1), True)):
+        _cuda.reset_launches()
+        fb = render_sharded(rp, ts, mesh, shard_frontend=split)
+        torch.cuda.synchronize()
+        assert _cuda.launches["fe"] > 0 and _cuda.launches["fused"] > 0
+        assert _equal(fb.color, ref.color) and _equal(fb.depth, ref.depth)
+    front, (table, _, _) = sharded_front(rp.to, ts[1], [cuda0] * 4)[cuda0]
+    unsplit, (u_table, _, _) = planar_front_table_of(
+        dataclasses.replace(rp, transform=ts[1]))
+    t = unsplit.num_triangles
+    for f in dataclasses.fields(fe.PlanarSetup):
+        assert _equal(getattr(front, f.name)[:t], getattr(unsplit, f.name))
+    assert _equal(table[:t], u_table)
+
+
+def test_texture_train_step_over_a_mesh_on_card(monkeypatch):
+    """One step in mode "1" on a 2 x 2 mesh of the one card against the
+    meshless step: loss within rel 1e-5, texels within 1e-5 (the bands'
+    gradients sum in another order)."""
+    from software_renderer_tpu_torch.parallel.sharding import make_mesh
+    monkeypatch.setattr(ttex, "TEX_WINDOWED", "1")
+    rp = _config4_loop_scene(0.0)
+    ts = torch.stack([_config4_loop_scene(0.5 * i).transform
+                      for i in range(4)])
+    targets = render_batch(rp, ts).color
+    tex0 = torch.full_like(rp.texture.data, 0.5)
+    new, loss = texture_train_step(tex0, rp, ts, targets, lr=5000.0)
+    new_m, loss_m = texture_train_step(
+        tex0, rp, ts, targets, make_mesh(2, 2, ["cuda:0"] * 4), lr=5000.0)
+    torch.cuda.synchronize()
+    assert float((new - tex0).abs().max()) > 1e-3
+    assert abs(float(loss_m) - float(loss)) <= 1e-5 * float(loss)
+    assert float((new_m - new).abs().max()) <= 1e-5

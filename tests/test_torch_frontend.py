@@ -218,7 +218,10 @@ def test_import_leaves_jax_out():
         "    importlib.import_module(m.name)\n"
         "for m in ('ops.texture_kernel', 'parallel.batch',"
         " 'parallel.sharding', 'tools.probe_dyngather', 'ops.lines',"
-        " 'ops.primitives2d', 'ops.msaa', 'ops.resize', 'utils.config'):\n"
+        " 'ops.primitives2d', 'ops.msaa', 'ops.resize', 'utils.config',"
+        " 'models.teapot', 'runtime', 'utils.log', 'utils.image_io',"
+        " 'utils.checkpoint', 'utils.device', 'utils.timing',"
+        " 'utils.profiling', 'utils.present', 'utils.display'):\n"
         "    assert p.__name__ + '.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'software_renderer_tpu'"

@@ -1,0 +1,230 @@
+"""PyTorch port, the host surface: the teapot generator and config 3's
+fallback, image IO, the native runtime, checkpoints, logging, device
+info, timing, the frame loop and the live viewer, on the CPU against the
+JAX package where it has the same function.
+
+Tolerances: every comparison here is exact. The teapot's arrays, the
+PNG and PPM bytes, the OBJ arrays and checkpoint arrays are bit for bit
+(both packages run the same numpy, zlib and C++ code); decoded frames
+equal ``to_rgba8`` of the port's own render byte for byte.
+"""
+import json
+import logging
+import os
+import urllib.request
+
+import numpy as np
+import pytest
+import torch
+
+from software_renderer_tpu import runtime as jruntime
+from software_renderer_tpu.models import mesh as jmesh
+from software_renderer_tpu.models import teapot as jteapot
+from software_renderer_tpu.utils import checkpoint as jckpt
+from software_renderer_tpu.utils import image_io as jio
+import software_renderer_tpu_torch as srt
+from software_renderer_tpu_torch import _cuda, runtime
+from software_renderer_tpu_torch.models import obj as tobj
+from software_renderer_tpu_torch.models import scenes as tscenes
+from software_renderer_tpu_torch.models import teapot as tteapot
+from software_renderer_tpu_torch.utils import checkpoint as tckpt
+from software_renderer_tpu_torch.utils import image_io as tio
+from software_renderer_tpu_torch.utils import log as tlog
+from software_renderer_tpu_torch.utils import profiling
+from software_renderer_tpu_torch.utils.config import RenderConfig
+from software_renderer_tpu_torch.utils.device import (DeviceInfo, block_on,
+                                                      memory_in_use)
+from software_renderer_tpu_torch.utils.display import FrameLoop
+from software_renderer_tpu_torch.utils.present import PresentServer
+from software_renderer_tpu_torch.utils.timing import (BenchResult,
+                                                      bench_frame)
+
+torch.set_num_threads(1)
+
+
+def _image(h=7, w=5, c=4, seed=0):
+    return np.random.default_rng(seed).integers(0, 256, (h, w, c),
+                                                dtype=np.uint8)
+
+
+@pytest.mark.parametrize("resolution", [3, 9])
+def test_teapot_mesh_equals_jax(resolution):
+    got = tteapot.teapot_mesh(resolution)
+    want = jteapot.teapot_mesh(resolution)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+    # 32 patches x resolution^2 quads x 2, less the pole quads welding
+    # makes degenerate.
+    assert got[1].shape[0] == {3: 552, 9: 5112}[resolution]
+
+
+def test_config3_falls_back_to_the_generator(monkeypatch, tmp_path):
+    """Without assets/teapot.obj, config 3 builds JAX's fallback mesh
+    (``teapot_mesh(9)``, abs(normal) colors) and renders."""
+    monkeypatch.setattr(tscenes, "TEAPOT_OBJ", tmp_path / "missing.obj")
+    rp = tscenes.config3_phong_mesh(0.3, width=64, height=64, device="cpu")
+    p, t, n, uv = jteapot.teapot_mesh(9)
+    want = jmesh.mesh_from_numpy(p, t.reshape(-1), colors=np.abs(n),
+                                 normals=n, uvs=uv)
+    for name in ("positions", "indices", "colors", "normals", "uvs"):
+        np.testing.assert_array_equal(getattr(rp.mesh, name).numpy(),
+                                      np.asarray(getattr(want, name)))
+    assert rp.mesh.indices.numel() // 3 == 5112
+    fb = srt.render(rp)
+    assert bool(torch.isfinite(fb.color).all())
+    assert float(fb.color[..., 3].mean()) > 0
+
+
+@pytest.mark.parametrize("c", [1, 3, 4])
+def test_encode_png_and_ppm_equal_jax(c, tmp_path):
+    img = _image(c=c)[..., 0] if c == 1 else _image(c=c)
+    assert tio.encode_png(img) == jio.encode_png(img)
+    assert tio.encode_png(torch.from_numpy(img), level=1) == \
+        jio.encode_png(img, level=1)
+    np.testing.assert_array_equal(
+        tio.decode_png(tio.encode_png(img)).reshape(img.shape), img)
+    if c != 1:
+        tio.write_ppm(str(tmp_path / "t.ppm"), torch.from_numpy(img))
+        jio.write_ppm(str(tmp_path / "j.ppm"), img)
+        assert (tmp_path / "t.ppm").read_bytes() == \
+            (tmp_path / "j.ppm").read_bytes()
+    with pytest.raises(ValueError):
+        tio.encode_png(img.astype(np.float32))
+
+
+def test_native_runtime_matches_python_and_jax(tmp_path):
+    """The native PNG writer and OBJ reader (built with g++ into the
+    build directory) agree with the Python path and, where JAX's runtime
+    built too, with JAX's."""
+    if not runtime.available():
+        pytest.skip("no g++ and zlib to build the native runtime")
+    with_jax = jruntime.available()
+    assert runtime.library_path().parent == _cuda.BUILD_DIR
+    img = _image(h=33, w=17)
+    runtime.write_png(str(tmp_path / "t.png"), torch.from_numpy(img))
+    if with_jax:
+        jruntime.write_png(str(tmp_path / "j.png"), img)
+        assert (tmp_path / "t.png").read_bytes() == \
+            (tmp_path / "j.png").read_bytes()
+    np.testing.assert_array_equal(runtime.read_png(str(tmp_path / "t.png")),
+                                  img)
+    with pytest.raises(ValueError):  # non-uint8: the Python encoder's rule
+        runtime.write_png(str(tmp_path / "f.png"), img.astype(np.float32))
+    path = str(tscenes.TEAPOT_OBJ)
+    got = runtime.load_obj(path, device="cpu")
+    py = tobj.load_obj(path, device="cpu")
+    jx = jruntime.load_obj(path) if with_jax else py
+    for name in ("positions", "indices", "colors", "normals", "uvs"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      getattr(py, name).numpy())
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(jx, name)))
+    empty = tmp_path / "empty.obj"
+    empty.write_text("v 0 0 0\nv 1 0 0\n")
+    with pytest.raises(ValueError, match="no OBJ face data"):
+        runtime.load_obj(str(empty), device="cpu")
+    with pytest.raises(IOError):
+        runtime.load_obj(str(tmp_path / "missing.obj"), device="cpu")
+
+
+def test_native_build_failure_is_logged_once(monkeypatch, tmp_path, caplog):
+    bad = tmp_path / "bad.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(runtime, "SRC", bad)
+    monkeypatch.setattr(runtime, "_lib", None)
+    monkeypatch.setattr(runtime, "_build_error", None)
+    monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path / "build")
+    logger = tlog.get_logger()
+    monkeypatch.setattr(logger, "propagate", True)
+    with caplog.at_level(logging.WARNING, logger=logger.name):
+        assert not runtime.available()
+        assert not runtime.available()
+        img = _image()
+        runtime.write_png(str(tmp_path / "p.png"), img)
+    warnings = [r for r in caplog.records if r.levelno == logging.WARNING]
+    assert len(warnings) == 1 and "g++ failed" in warnings[0].getMessage()
+    assert (tmp_path / "p.png").read_bytes() == jio.encode_png(img)
+
+
+def test_checkpoints_load_in_either_package(tmp_path):
+    tex = torch.rand(4, 3, 3, generator=torch.Generator().manual_seed(1))
+    tckpt.save_checkpoint(str(tmp_path / "t.npz"), {"texture": tex},
+                          meta={"step": 7})
+    arrays, meta = jckpt.load_checkpoint(str(tmp_path / "t.npz"))
+    np.testing.assert_array_equal(arrays["texture"], tex.numpy())
+    assert meta == {"step": 7}
+    jckpt.save_checkpoint(str(tmp_path / "j.npz"),
+                          {"texture": tex.numpy() * 2}, meta={"step": 3})
+    arrays, meta = tckpt.load_checkpoint(str(tmp_path / "j.npz"))
+    np.testing.assert_array_equal(arrays["texture"], tex.numpy() * 2)
+    assert meta == {"step": 3}
+    assert sorted(os.listdir(tmp_path)) == ["j.npz", "j.npz.json", "t.npz",
+                                            "t.npz.json"]
+
+
+def test_log_device_and_timing_on_the_cpu():
+    before = tlog.counters["test_bump"]
+    tlog.bump("test_bump", 3)
+    assert tlog.counters["test_bump"] == before + 3
+    assert tlog.get_logger("x").name == "software_renderer_tpu_torch.x"
+    info = DeviceInfo.query("cpu")
+    assert (info.platform, info.kind, info.memory_bytes) == ("cpu", "cpu",
+                                                             None)
+    assert memory_in_use("cpu") is None
+    x = torch.ones(3)
+    assert block_on({"a": [x, (x,)]})["a"][0] is x
+    res = bench_frame(lambda v: v * 2.0, lambda i: (torch.full((8,), i),),
+                      name="double", triangles=1000, iters=5)
+    assert isinstance(res, BenchResult)
+    assert res.frames == 5 and res.p50_ms > 0 and res.fps > 0
+    assert res.mtri_s > 0 and res.device_ms is None and "double" in str(res)
+    with profiling.timed("test_stage") as out:
+        out.append(x + 1)
+    assert len(profiling.stage_times["test_stage"]) >= 1
+    assert "test_stage" in profiling.report()
+
+
+def _sphere(t):
+    return tscenes.reference_sphere(t, width=32, height=32, device="cpu")
+
+
+@pytest.mark.parametrize("msaa", [1, 2])
+def test_frame_loop_writes_the_rendered_frames(tmp_path, msaa):
+    """Two frames of the reference sphere at 32x32 through FrameLoop.run:
+    the PNGs decode to to_rgba8 of the port's render (render_msaa with
+    the msaa knob), frame i at time i * time_step."""
+    cfg = RenderConfig(width=32, height=32, msaa=msaa, time_step=0.25)
+    loop = FrameLoop(_sphere, transform_fn=lambda t: _sphere(t).transform,
+                     config=cfg)
+    written = tlog.counters["frames_written"]
+    fps = loop.run(2, out_dir=str(tmp_path))
+    assert fps > 0 and tlog.counters["frames_written"] == written + 2
+    assert sorted(os.listdir(tmp_path)) == ["frame_00000.png",
+                                            "frame_00001.png"]
+    for i in range(2):
+        rp = _sphere(0.25 * i)
+        fb = srt.render_msaa(rp, samples=msaa) if msaa > 1 else \
+            srt.render(rp)
+        want = srt.to_rgba8(fb.color).numpy()
+        got = runtime.read_png(str(tmp_path / f"frame_{i:05d}.png"))
+        np.testing.assert_array_equal(got, want)
+    assert loop.time == 0.5
+
+
+def test_present_server_serves_a_frame():
+    rp = _sphere(0.0)
+    fb = srt.render(rp)
+    with PresentServer(port=0) as srv:
+        loop = FrameLoop(_sphere, config=RenderConfig(width=32, height=32))
+        loop.run(1, present=srv)
+        with urllib.request.urlopen(srv.url + "frame.png", timeout=10) as r:
+            png = r.read()
+        with urllib.request.urlopen(srv.url + "stats.json",
+                                    timeout=10) as r:
+            stats = json.loads(r.read())
+        with urllib.request.urlopen(srv.url, timeout=10) as r:
+            assert b"<html>" in r.read()
+    assert stats["frame"] == 0
+    np.testing.assert_array_equal(tio.decode_png(png),
+                                  srt.to_rgba8(fb.color).numpy())

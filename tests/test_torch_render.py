@@ -1,7 +1,7 @@
 """PyTorch port, the whole slice: ``render()`` against the JAX package's
 ``render(..., backend="reference")`` on the same scene (carried across
 with software_renderer_tpu_torch.convert), plus the scene generators and
-the paths that are not ported yet.
+the rejection of a batch of transforms.
 
 Alpha (coverage) is bit-equal. Color uses the repo's typed depth-tie
 class (testing/compare.py assert_tie_class_equal) at atol 1e-3: planes
@@ -11,6 +11,7 @@ reference test uses 1e-3, tests/test_binning.py).
 """
 import dataclasses
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -133,11 +134,16 @@ def test_to_rgba8_matches_jax():
                                   srt.to_rgba8(torch.from_numpy(x)).numpy())
 
 
-@pytest.mark.parametrize("change", [
-    dict(transform=torch.eye(4).expand(2, 4, 4))])
-def test_unported_paths_raise(change):
-    rp = tscenes.config1_flat_cube(0.3, width=64, height=64, device="cpu")
-    change = dict(change)
-    backend = change.pop("backend", "auto")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        srt.render(dataclasses.replace(rp, **change), backend=backend)
+@pytest.mark.parametrize("backend", ["auto"])
+def test_render_rejects_a_batch_of_transforms(backend):
+    """A [B, 4, 4] transform is a TypeError in both packages (JAX's fails
+    to broadcast); batches go through parallel.batch.render_batch."""
+    rp_j = jscenes.config1_flat_cube(0.3, width=64, height=64)
+    with pytest.raises(TypeError):
+        sr.render(dataclasses.replace(
+            rp_j, transform=jnp.broadcast_to(rp_j.transform, (2, 4, 4))),
+            backend=backend)
+    rp = _port_of(rp_j)
+    with pytest.raises(TypeError, match="render_batch"):
+        srt.render(dataclasses.replace(
+            rp, transform=rp.transform.expand(2, 4, 4)), backend=backend)
