@@ -94,13 +94,38 @@ the script exits non-zero without printing a result:
    from the teapot generator at 1024x1024, card vs CPU at phase 6's
    size; (f) profiling.trace around two main-path frames in spans, the
    Chrome trace holding the spans and K2's launches; (g) bench_frame of
-   the main path (20 iterations) beside phase 5's ms/frame.
+   the main path (20 iterations) beside phase 5's ms/frame;
+14. the compiled frame, config 4 at 1920x1080: (a) host syncs per frame
+   of the eager routes under torch.cuda.set_sync_debug_mode (counted in
+   "warn" mode, then run again in "error" mode): the main path's 8
+   frames in modes "0" and "1", flat shading and binned_pipeline with
+   attributes, the camera path (clip + perspective) in both modes,
+   render_rows bands and render_sharded; 0 on each, and at most the one
+   predicate read of
+   "adaptive"; (b) render_batch of the 8 main-path frames, captured on
+   frame 0 and replayed on the rest (spill frames 120, 240 and 600
+   included), in modes "0" and "1": alpha, depth and color bit-equal to
+   the eager frames and the launch counters equal to theirs; the main
+   path's geometry captured on frame 0 and replayed: ids, depth and
+   planes bit-equal; (c) FrameLoop with a transform_fn and render_batch
+   of camera frames replay bit for bit; (d) the eager route (the
+   "adaptive" sampler, a texture that requires grad) counted; (e)
+   ms/frame eager against replayed (CUDA events and the host clock, in
+   turns) with device ms and kernels per frame of each (profiled), in
+   modes "0" and "1"; (f) the peak memory of render_batch with the graph
+   against the same 16 frames rendered eagerly.
 
-Phase 3 also holds K1 with its perspective flag and K2's perspective
-plan (static, and seeded from K3 and K4 at 9 channels on the camera
-frame's own spills) against their plain versions at the camera path's
-t = 0 shapes, with their times and bounds. It holds K3' on large triangles (config 2's cube at 1920x1080)
-against its plain version, K7 (at config-4 frame-0 shapes, against its
+Phase 3 runs K2, K3 and K4 as the main path calls them: K2 seeded with
+the frame's overflow count, which must equal the static walk bit for
+bit and read no seed at a count of 0 (timed against the static launch
+in turns), K3 and K4 over the static overflow list with the device
+count (K3 equal to its run over the compact list, and both returning
+their seeds at a count of 0). It also holds K1 with its perspective
+flag and K2's perspective plan (static, and seeded from K3 and K4 at 9
+channels on the camera frame's own spills) against their plain versions
+at the camera path's t = 0 shapes, with their times and bounds. It
+holds K3' on large triangles (config 2's cube at 1920x1080) against its
+plain version, K7 (at config-4 frame-0 shapes, against its
 plain version and the quad-table sampler) and K8 (at the probe's shapes)
 with their times, bounds and library times; it times the seeded K2 on the
 kmax=1 spill set, prints the records per bin of K2's and K5's inputs
@@ -123,6 +148,7 @@ import sys
 import tempfile
 import time
 import urllib.request
+import warnings
 
 import numpy as np
 import torch
@@ -149,6 +175,7 @@ from software_renderer_tpu_torch.ops.rasterize_kernel import (
     _poison_row, visibility_kernel, visibility_merge_kernel,
     visibility_merge_plain, visibility_pallas, visibility_plain)
 from software_renderer_tpu_torch.ops.shading import fused_output_channels
+from software_renderer_tpu_torch.parallel import frame_graph as fg
 from software_renderer_tpu_torch.parallel.batch import (render_batch,
                                                        render_batch_chunked)
 from software_renderer_tpu_torch.parallel.sharding import (
@@ -156,6 +183,7 @@ from software_renderer_tpu_torch.parallel.sharding import (
 from software_renderer_tpu_torch.render import (_pad_cols, clip_inputs,
                                                planar_front_of,
                                                planar_front_table_of,
+                                               shading_inputs,
                                                triangle_inputs)
 from software_renderer_tpu_torch.tools import probe_dyngather as probe
 from software_renderer_tpu_torch.tools.probe_dyngather import graph_ms
@@ -336,6 +364,24 @@ def sampler_work(tabs, prep, out):
     return n_bytes, lanes
 
 
+def live_pairs(info):
+    """The live pairs of a bin build (its ids past them are -1)."""
+    return int(info.bin_start[-1])
+
+
+def binned_ids(info):
+    """The distinct binned triangle ids of a bin build (int64)."""
+    return torch.unique(info.ids[:live_pairs(info)]).long()
+
+
+def junk_seeds(dev, a, h, w):
+    """(z, id, gb) seeds no render makes: a kernel told that no triangle
+    spilled must neither read nor change them."""
+    return (torch.full((h, w), -5.0, device=dev),
+            torch.full((h, w), 7, dtype=torch.int32, device=dev),
+            torch.full((a, h, w), 3.0, device=dev))
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -406,6 +452,7 @@ def phase_kernels(dev):
               has_texture=True, bands=4, bbox=bbox)
     info = tb.build_bins(ps, width=w, height=h, kmax=48,
                          pair_budget_factor=0.85, bands=4)
+    n_pairs = live_pairs(info)
     rows = tb.gather_stream(table, info.ids, poison).contiguous()
     zk, ik, ok = tb.fused_kernel(rows, info.bin_start, prm, **kw)
     zp, ip, op = tb.fused_plain(rows, info.bin_start, prm, **kw)
@@ -414,72 +461,130 @@ def phase_kernels(dev):
     assert_bit_equal(zk, zp, "K2 depth")
     err2 = max_err(ok, op)
     assert err2 <= PLANE_TOL, f"K2 planes differ by {err2}"
+    # The main path's launch: seeded from the overflow pass with the
+    # frame's overflow count, which frame 0 leaves at 0, so the launch
+    # must read no seed (these would show) and equal the static walk.
+    assert int(info.n_overflow) == 0, "frame 0 spills"
+    junk = junk_seeds(dev, a, h, w)
+    zc, ic, oc = tb.fused_kernel(rows, info.bin_start, prm, seeds=junk,
+                                 n_overflow=info.n_overflow, **kw)
+    zcp, icp, ocp = tb.fused_plain(rows, info.bin_start, prm, seeds=junk,
+                                   n_overflow=info.n_overflow, **kw)
+    sync()
+    for got, want, what in ((zc, zk, "depth"), (ic, ik, "ids"),
+                            (oc, ok, "planes"), (zcp, zp, "plain depth"),
+                            (icp, ip, "plain ids"), (ocp, op, "plain planes")):
+        assert_bit_equal(got, want, f"K2 with the count at 0 vs static, "
+                                    f"{what}")
+    # In turns, static, count, count, static: the same call and card.
+    t2 = {"static": [], "count": []}
+    for which in ("static", "count", "count", "static"):
+        extra = {} if which == "static" else dict(
+            seeds=junk, n_overflow=info.n_overflow)
+        t2[which].append(graph_ms(lambda: tb.fused_kernel(
+            rows, info.bin_start, prm, **extra, **kw), 20))
+    k2_ms = sum(t2["count"]) / 2
+    k2_static = sum(t2["static"]) / 2
+    print(f"K2 on frame 0 (no spill), by graph replay in turns: static "
+          f"{t2['static']} ms, seeded with the count at 0 {t2['count']} "
+          f"ms; ratio {k2_ms / k2_static}", flush=True)
     res["fused"] = dict(
         max_abs_err=err2,
-        ms=graph_ms(lambda: tb.fused_kernel(rows, info.bin_start, prm, **kw),
-                    20),
+        ms=k2_ms,
+        static_ms=k2_static,
+        count_vs_static=k2_ms / k2_static,
         launch_loop_ms=cuda_ms(lambda: tb.fused_kernel(
-            rows, info.bin_start, prm, **kw), 20),
+            rows, info.bin_start, prm, seeds=junk,
+            n_overflow=info.n_overflow, **kw), 20),
         plain_ms=cuda_ms(lambda: tb.fused_plain(rows, info.bin_start, prm,
                                                 **kw), 2),
-        shape=f"{info.ids.numel()} pairs in {info.bin_start.numel() - 1} "
-              "bins",
-        **bound(nbytes(rows, info.bin_start, prm, zk, ik, ok),
-                OPS_TEST * bbox_pixels(bbox[torch.unique(info.ids).long()],
-                                       w, h)
+        shape=f"{n_pairs} pairs in {info.bin_start.numel() - 1} bins "
+              f"(capacity {info.ids.numel()})",
+        **bound(nbytes(rows[:n_pairs], info.bin_start, prm, zk, ik, ok),
+                OPS_TEST * bbox_pixels(bbox[binned_ids(info)], w, h)
                 + w * h * (4 * a + OPS_EPILOGUE)))
 
     # Overflow set: kmax=1 spills every triangle spanning two bins or more.
+    # As the main path runs it: the static overflow list (ids ascending,
+    # then -1) and the device count.
     info1 = tb.build_bins(ps, width=w, height=h, kmax=1,
                           pair_budget_factor=0.85, bands=4)
-    ov = torch.nonzero(info1.overflow_mask).squeeze(1).to(torch.int32)
-    rec = tb.gather_stream(fe.pack_records_planar(ps, 128), ov,
-                           _poison_row(dev)).contiguous()
+    n1 = info1.n_overflow
+    n_ov = int(n1)
+    ov = tb.overflow_ids(info1.overflow_mask)
+    ov_rows = tb.gather_stream(table, ov, poison).contiguous()
+    rec = tb.raster_records(ov_rows, bbox, ov)
     z0 = torch.full((h, w), float("inf"), device=dev)
     i0 = torch.full((h, w), -1, dtype=torch.int32, device=dev)
-    z3, i3 = visibility_merge_kernel(rec, z0, i0, width=w, height=h)
-    z3p, i3p = visibility_merge_plain(rec, z0, i0, width=w, height=h)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    k3 = dict(width=w, height=h, n_live=n1)
+    z3, i3 = visibility_merge_kernel(rec, z0, i0, **k3)
+    z3p, i3p = visibility_merge_plain(rec, z0, i0, **k3)
+    # The compact list of the spilled triangles' records, with no count.
+    rec_c = tb.gather_stream(fe.pack_records_planar(ps, 128), ov[:n_ov],
+                             _poison_row(dev)).contiguous()
+    z3c, i3c = visibility_merge_kernel(rec_c, z0, i0, width=w, height=h)
+    z30, i30 = visibility_merge_kernel(rec, junk[0], junk[1], width=w,
+                                       height=h, n_live=zero)
     sync()
     assert_bit_equal(i3, i3p, "K3 ids")
     assert_bit_equal(z3, z3p, "K3 depth")
+    assert_bit_equal(i3, i3c, "K3 ids, static list vs compact list")
+    assert_bit_equal(z3, z3c, "K3 depth, static list vs compact list")
+    assert_bit_equal(i30, junk[1], "K3 with the count at 0: ids")
+    assert_bit_equal(z30, junk[0], "K3 with the count at 0: depth")
     res["visibility_merge"] = dict(
         max_abs_err=max_err(z3, z3p),
-        ms=graph_ms(lambda: visibility_merge_kernel(rec, z0, i0, width=w,
-                                                    height=h), 20),
+        ms=graph_ms(lambda: visibility_merge_kernel(rec, z0, i0, **k3), 20),
+        count0_ms=graph_ms(lambda: visibility_merge_kernel(
+            rec, z0, i0, width=w, height=h, n_live=zero), 20),
+        compact_ms=graph_ms(lambda: visibility_merge_kernel(
+            rec_c, z0, i0, width=w, height=h), 20),
         launch_loop_ms=cuda_ms(lambda: visibility_merge_kernel(
-            rec, z0, i0, width=w, height=h), 20),
+            rec, z0, i0, **k3), 20),
         plain_ms=cuda_ms(lambda: visibility_merge_plain(
-            rec, z0, i0, width=w, height=h), 1),
-        shape=f"{ov.numel()} overflow records",
-        **bound(nbytes(rec, z0, i0, z3, i3),
-                OPS_TEST_CLAMPED * bbox_pixels(rec[:, 10:14], w, h)))
+            rec, z0, i0, **k3), 1),
+        shape=f"{n_ov} overflow records of a {rec.shape[0]}-row list",
+        **bound(nbytes(rec[:n_ov], z0, i0, z3, i3),
+                OPS_TEST_CLAMPED * bbox_pixels(rec[:n_ov, 10:14], w, h)))
 
-    ov_rows = tb.gather_stream(table, ov, poison).contiguous()
-    g0 = torch.zeros((a, h, w), device=dev)
-    g4 = tb.resolve_merge_kernel(ov_rows, i3, g0, width=w, height=h)
-    g4p = tb.resolve_merge_plain(ov_rows, i3, g0, width=w, height=h)
+    # With no seed K4 defines the overflow winners' pixels only (all
+    # that K2 reads of its seed planes).
+    k4 = dict(width=w, height=h, n_live=n1)
+    won = i3 >= 0
+    g4 = tb.resolve_merge_kernel(ov_rows, i3, None, **k4)
+    g4p = tb.resolve_merge_plain(ov_rows, i3, None, **k4)
+    g4s = tb.resolve_merge_kernel(ov_rows, i3, torch.zeros_like(g4), **k4)
+    g4sp = tb.resolve_merge_plain(ov_rows, i3, torch.zeros_like(g4), **k4)
+    g40 = tb.resolve_merge_kernel(ov_rows, i3, junk[2], width=w, height=h,
+                                  n_live=zero)
     sync()
-    err4 = max_err(g4, g4p)
+    err4 = max(max_err(g4[:, won], g4p[:, won]), max_err(g4s, g4sp))
     assert err4 <= PLANE_TOL, f"K4 planes differ by {err4}"
+    assert_bit_equal(g4s[:, won], g4[:, won], "K4 with a zero seed vs none")
+    assert_bit_equal(g40, junk[2], "K4 with the count at 0")
     res["resolve_merge"] = dict(
         max_abs_err=err4,
-        ms=graph_ms(lambda: tb.resolve_merge_kernel(ov_rows, i3, g0, width=w,
-                                                    height=h), 20),
+        ms=graph_ms(lambda: tb.resolve_merge_kernel(ov_rows, i3, None,
+                                                    **k4), 20),
+        count0_ms=graph_ms(lambda: tb.resolve_merge_kernel(
+            ov_rows, i3, None, width=w, height=h, n_live=zero), 20),
         launch_loop_ms=cuda_ms(lambda: tb.resolve_merge_kernel(
-            ov_rows, i3, g0, width=w, height=h), 20),
+            ov_rows, i3, None, **k4), 20),
         plain_ms=cuda_ms(lambda: tb.resolve_merge_plain(
-            ov_rows, i3, g0, width=w, height=h), 5),
-        shape=f"{ov.numel()} overflow rows",
-        **bound(resolve_bytes(ov_rows, torch.unique(i3[i3 >= 0]).numel(),
-                              a, i3, g0, g4),
-                w * h * (4 * a + math.ceil(math.log2(ov.numel() + 1)))))
+            ov_rows, i3, None, **k4), 5),
+        shape=f"{n_ov} overflow rows of a {ov_rows.shape[0]}-row list",
+        # With no seed it writes the overflow winners' pixels only.
+        **bound(resolve_bytes(ov_rows[:n_ov],
+                              torch.unique(i3[won]).numel(), a, i3)
+                + int(won.sum()) * a * 4,
+                int(won.sum()) * (4 * a + math.ceil(math.log2(n_ov + 1)))))
 
     rows1 = tb.gather_stream(table, info1.ids, poison).contiguous()
     seeds = (z3, i3, g4)
-    zs, is_, os_ = tb.fused_kernel(rows1, info1.bin_start, prm, seeds=seeds,
-                                   **kw)
-    zsp, isp, osp = tb.fused_plain(rows1, info1.bin_start, prm, seeds=seeds,
-                                   **kw)
+    kw1 = dict(seeds=seeds, n_overflow=n1, **kw)
+    zs, is_, os_ = tb.fused_kernel(rows1, info1.bin_start, prm, **kw1)
+    zsp, isp, osp = tb.fused_plain(rows1, info1.bin_start, prm, **kw1)
     sync()
     assert_bit_equal(is_, isp, "K2 seeded ids")
     assert_bit_equal(zs, zsp, "K2 seeded depth")
@@ -491,12 +596,14 @@ def phase_kernels(dev):
     res["fused"]["max_abs_err"] = max(err2, errs)
     res["fused"]["seeded_max_abs_err_vs_binned"] = max_err(os_, ok)
     res["fused"]["seeded_ms"] = graph_ms(lambda: tb.fused_kernel(
-        rows1, info1.bin_start, prm, seeds=seeds, **kw), 20)
-    res["fused"]["seeded_shape"] = (f"{info1.ids.numel()} pairs, "
-                                    f"{ov.numel()} spilled")
-    print(f"seeded fused (kmax=1, {ov.numel()} spilled) equals the binned "
+        rows1, info1.bin_start, prm, **kw1), 20)
+    res["fused"]["seeded_shape"] = (f"{live_pairs(info1)} pairs, "
+                                    f"{n_ov} spilled")
+    print(f"seeded fused (kmax=1, {n_ov} spilled) equals the binned "
           f"frame; planes max |d| {res['fused']['seeded_max_abs_err_vs_binned']}",
           flush=True)
+    print(f"K3 and K4 with the count at 0 return their seeds; K3 over the "
+          f"static list equals K3 over the compact list", flush=True)
 
     # K3' (the clear mode) on every record of the frame, as the pallas
     # backend gives them, against its plain version.
@@ -508,7 +615,7 @@ def phase_kernels(dev):
     assert_bit_equal(zc, zcp, "K3' depth")
     # From the clear buffer with records in ascending id, K3' must equal
     # K3's lex merge: on the overflow records above.
-    zo, io = visibility_kernel(rec, width=w, height=h)
+    zo, io = visibility_kernel(rec[:n_ov], width=w, height=h)
     sync()
     assert_bit_equal(io, i3, "K3' vs K3 ids")
     assert_bit_equal(zo, z3, "K3' vs K3 depth")
@@ -558,10 +665,10 @@ def phase_kernels(dev):
             rows_b, starts, **geo5), 20),
         plain_ms=cuda_ms(lambda: tb.binned_vis_plain(rows_b, starts, **geo5),
                          2),
-        shape=f"{info_b.ids.numel()} pairs in {starts.numel() - 1} bins",
-        **bound(rows_b.shape[0] * tb.REC_BASE * 4 + nbytes(starts, z5, i5),
-                OPS_TEST * bbox_pixels(
-                    bbox[torch.unique(info_b.ids).long()], w, h)))
+        shape=f"{live_pairs(info_b)} pairs in {starts.numel() - 1} bins",
+        **bound(live_pairs(info_b) * tb.REC_BASE * 4
+                + nbytes(starts, z5, i5),
+                OPS_TEST * bbox_pixels(bbox[binned_ids(info_b)], w, h)))
 
     g6 = tb.resolve_kernel(rows_b, starts, i5, n_channels=a, width=w,
                            height=h)
@@ -586,8 +693,9 @@ def phase_kernels(dev):
             rows_b, starts, i5, n_channels=a, width=w, height=h), 20),
         plain_ms=cuda_ms(lambda: tb.resolve_plain(
             rows_b, starts, i5, n_channels=a, width=w, height=h), 5),
-        shape=f"{info_b.ids.numel()} rows, {a} channels, {n_won} won",
-        **bound(resolve_bytes(rows_b, n_won, a, starts, i5, g6),
+        shape=f"{live_pairs(info_b)} rows, {a} channels, {n_won} won",
+        **bound(resolve_bytes(rows_b[:live_pairs(info_b)], n_won, a, starts,
+                              i5, g6),
                 w * h * (4 * a + math.ceil(math.log2(longest + 1)))))
     # The bin walks' inputs: records per bin (a few long bins set their
     # time).
@@ -1145,7 +1253,7 @@ def phase_camera_kernels(dev):
     # Per pixel beyond the plan's: the reciprocal of 1/w and a multiply per
     # channel read.
     pix_ops = 4 * a + OPS_EPILOGUE + a
-    binned_px = bbox_pixels(bbox[torch.unique(info.ids).long()], w, h)
+    binned_px = bbox_pixels(bbox[binned_ids(info)], w, h)
     res["fused_persp"] = dict(
         max_abs_err=err,
         ms=graph_ms(lambda: tb.fused_kernel(rows, info.bin_start, prm, **kw),
@@ -1154,31 +1262,34 @@ def phase_camera_kernels(dev):
             rows, info.bin_start, prm, **kw), 20),
         plain_ms=cuda_ms(lambda: tb.fused_plain(rows, info.bin_start, prm,
                                                 **kw), 2),
-        shape=f"{info.ids.numel()} pairs in {info.bin_start.numel() - 1} "
+        shape=f"{live_pairs(info)} pairs in {info.bin_start.numel() - 1} "
               f"bins, {a} channels, [2T] = {ps.num_triangles} slots",
-        **bound(nbytes(rows, info.bin_start, prm, zk, ik, ok),
+        **bound(nbytes(rows[:live_pairs(info)], info.bin_start, prm, zk, ik,
+                       ok),
                 OPS_TEST * binned_px + w * h * pix_ops))
 
-    # The frame's own spills: K3, K4 at A + 1 channels, the seeded plan.
-    assert info.n_overflow > 0, "the camera frame does not spill"
-    ov = torch.nonzero(info.overflow_mask).squeeze(1).to(torch.int32)
-    rec = tb.gather_stream(fe.pack_records_planar(ps, 128), ov,
-                           _poison_row(dev)).contiguous()
+    # The frame's own spills, as the main path runs them (the static
+    # overflow list and the device count): K3, K4 at A + 1 channels, the
+    # seeded plan.
+    n_ov = int(info.n_overflow)
+    assert n_ov > 0, "the camera frame does not spill"
+    ov = tb.overflow_ids(info.overflow_mask)
+    ov_rows = tb.gather_stream(table, ov, poison).contiguous()
+    rec = tb.raster_records(ov_rows, bbox, ov)
     z0 = torch.full((h, w), float("inf"), device=dev)
     i0 = torch.full((h, w), -1, dtype=torch.int32, device=dev)
-    z3, i3 = visibility_merge_kernel(rec, z0, i0, width=w, height=h)
-    ov_rows = tb.gather_stream(table, ov, poison).contiguous()
-    g0 = torch.zeros((a, h, w), device=dev)
-    g4 = tb.resolve_merge_kernel(ov_rows, i3, g0, width=w, height=h)
-    g4p = tb.resolve_merge_plain(ov_rows, i3, g0, width=w, height=h)
+    count = dict(width=w, height=h, n_live=info.n_overflow)
+    z3, i3 = visibility_merge_kernel(rec, z0, i0, **count)
+    g4 = tb.resolve_merge_kernel(ov_rows, i3, None, **count)
+    g4p = tb.resolve_merge_plain(ov_rows, i3, None, **count)
     sync()
-    err4 = max_err(g4, g4p)
+    err4 = max_err(g4[:, i3 >= 0], g4p[:, i3 >= 0])
     assert err4 <= PLANE_TOL, f"K4 at {a} channels differs by {err4}"
     seeds = (z3, i3, g4)
     zs, is_, os_ = tb.fused_kernel(rows, info.bin_start, prm, seeds=seeds,
-                                   **kw)
+                                   n_overflow=info.n_overflow, **kw)
     zsp, isp, osp = tb.fused_plain(rows, info.bin_start, prm, seeds=seeds,
-                                   **kw)
+                                   n_overflow=info.n_overflow, **kw)
     sync()
     assert_bit_equal(is_, isp, "K2 (perspective, seeded) ids")
     assert_bit_equal(zs, zsp, "K2 (perspective, seeded) depth")
@@ -1187,20 +1298,24 @@ def phase_camera_kernels(dev):
     assert bool(torch.isfinite(os_).all())
     res["fused_persp_seeded"] = dict(
         max_abs_err=errs,
-        ms=graph_ms(lambda: tb.fused_kernel(rows, info.bin_start, prm,
-                                            seeds=seeds, **kw), 20),
-        plain_ms=cuda_ms(lambda: tb.fused_plain(rows, info.bin_start, prm,
-                                                seeds=seeds, **kw), 2),
+        ms=graph_ms(lambda: tb.fused_kernel(
+            rows, info.bin_start, prm, seeds=seeds,
+            n_overflow=info.n_overflow, **kw), 20),
+        plain_ms=cuda_ms(lambda: tb.fused_plain(
+            rows, info.bin_start, prm, seeds=seeds,
+            n_overflow=info.n_overflow, **kw), 2),
         resolve_merge_ms=graph_ms(lambda: tb.resolve_merge_kernel(
-            ov_rows, i3, g0, width=w, height=h), 20),
+            ov_rows, i3, None, **count), 20),
         resolve_merge_max_abs_err=err4,
-        shape=f"{info.ids.numel()} pairs, {ov.numel()} spilled, "
-              f"{a} channels",
-        **bound(nbytes(rows, info.bin_start, prm, zs, is_, os_, *seeds),
+        shape=f"{live_pairs(info)} pairs, {n_ov} spilled, {a} channels",
+        # The seed planes are read where the seed's id won the pixel.
+        **bound(nbytes(rows[:live_pairs(info)], info.bin_start, prm, zs,
+                       is_, os_, z3, i3)
+                + int(((is_ == i3) & (i3 >= 0)).sum()) * a * 4,
                 OPS_TEST * binned_px + w * h * pix_ops))
     print(f"camera kernels (config4_camera t=0, {w}x{h}, {ps.num_triangles} "
-          f"slots, {int(ps.valid.sum())} valid; {info.ids.numel()} pairs, "
-          f"{ov.numel()} spilled): K1 with the flag, K2's perspective plan "
+          f"slots, {int(ps.valid.sum())} valid; {live_pairs(info)} pairs, "
+          f"{n_ov} spilled): K1 with the flag, K2's perspective plan "
           f"static and seeded, K4 at {a} channels equal their plain "
           f"versions", flush=True)
     for name in ("fe_persp", "fused_persp", "fused_persp_seeded"):
@@ -1222,8 +1337,8 @@ def phase_camera(dev, card):
         print(f"camera t={t}: {straddle} straddling triangles ({one_behind} "
               f"with one corner behind: {straddle + one_behind} clipped "
               f"triangles), {behind} wholly behind; {int(setup.valid.sum())} "
-              f"of {2 * n_tri} slots drawn; {info.ids.numel()} pairs, "
-              f"{info.n_overflow} spilled", flush=True)
+              f"of {2 * n_tri} slots drawn; {live_pairs(info)} pairs, "
+              f"{int(info.n_overflow)} spilled", flush=True)
         assert straddle >= MIN_STRADDLERS, f"t={t}: {straddle} straddlers"
     paths = {
         "clip_persp_0": ("0", lambda p: render(p)),
@@ -2003,6 +2118,327 @@ def phase_host(dev, card, main_ms):
     return launches
 
 
+def sync_count(fn):
+    """Host syncs of ``fn()`` as torch's sync debug mode sees them: the
+    synchronizing operations it reports in "warn" mode."""
+    with warnings.catch_warnings(record=True) as got:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sync()
+    return sum("called a synchronizing" in str(w.message) for w in got)
+
+
+def sync_free(fn, what):
+    """Run ``fn()`` under sync debug mode "error": a host sync raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        raise AssertionError(f"{what} syncs with the host: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sync()
+
+
+def sync_routes(rp, passes):
+    """{route: (frames, a function rendering them)} of every eager route
+    that must make no host sync: the main path in modes "0" and "1" (the
+    8 frames, spills included), flat shading and binned_pipeline with
+    attributes (frames 0 and 120), the camera path (clip + perspective,
+    both modes), render_rows bands (frames 0 and 120) and render_sharded
+    on a 1 x 2 mesh of the card (frames 0 and 120, the split
+    front-end)."""
+    w, h = rp.width, rp.height
+    spill = [p for i, p in zip(MAIN_FRAMES, passes) if i in (0, 120)]
+
+    def in_mode(mode, fn):
+        def run():
+            ttex.TEX_WINDOWED = mode
+            try:
+                fn()
+            finally:
+                ttex.TEX_WINDOWED = "0"
+        return run
+
+    def pipeline(p):
+        ps, table = planar_front_table_of(p)
+        tb.binned_pipeline(ps, None, width=w, height=h, stream_table=table,
+                           pair_budget_factor=BUDGET)
+
+    dev = rp.transform.device
+    cams = [scenes.config4_camera(t, device=dev) for t in CAMERA_TIMES[:2]]
+    bands = ROW_BANDS + (RAGGED_BAND,)
+    ts = torch.stack([p.transform for p in spill])
+    mesh = make_mesh(1, 2, [dev, dev])
+    routes = {
+        "auto, mode 0": (len(passes), in_mode("0", lambda: [
+            render(p) for p in passes])),
+        "auto, mode 1": (len(passes), in_mode("1", lambda: [
+            render(p) for p in passes])),
+        "flat": (len(spill), lambda: [render(dataclasses.replace(
+            p, shading="flat")) for p in spill]),
+        "binned_pipeline": (len(spill), lambda: [pipeline(p)
+                                                 for p in spill]),
+        "camera, mode 0": (len(cams), in_mode("0", lambda: [
+            render(c) for c in cams])),
+        "camera, mode 1": (len(cams), in_mode("1", lambda: [
+            render(c) for c in cams])),
+        "render_rows": (len(spill) * len(bands), lambda: [
+            render_rows(p, y0, n) for p in spill for y0, n in bands]),
+        "render_sharded 1x2": (len(spill), lambda: render_sharded(
+            rp, ts, mesh)),
+    }
+    return routes
+
+
+def pipeline_frame(rp):
+    """(depth, ids, planes) of the main path's geometry: K1's setup and
+    stream table, then fused_pipeline, as render() runs them."""
+    ps, table = planar_front_table_of(rp)
+    chans, _, prm, lit, tex = shading_inputs(rp, with_attrs=False)
+    return tb.fused_pipeline(ps, None, prm, chans=chans, has_light=lit,
+                             has_texture=tex, width=rp.width,
+                             height=rp.height, pair_budget_factor=BUDGET,
+                             stream_table=table)
+
+
+def replay_ids(rp, transforms):
+    """The main path's geometry captured once on ``transforms[0]`` and
+    replayed on each transform: [(depth, ids, planes)] (copies)."""
+    static_t = transforms[0].clone()
+    crp = dataclasses.replace(rp, transform=static_t)
+    counts = dict(_cuda.launches)
+    pipeline_frame(crp)
+    sync()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pipeline_frame(crp)
+    _cuda.launches.update(counts)
+    got = []
+    for t in transforms:
+        static_t.copy_(t)
+        graph.replay()
+        got.append(tuple(x.clone() for x in out))
+    sync()
+    return got
+
+
+def timed_turns(fns, passes, n_turns=2):
+    """{name: [ms/frame by CUDA events, ms/frame by the host clock] of
+    each turn}: every fn renders ``passes``, in turns (A B B A ...)."""
+    order = list(fns) + list(fns)[::-1]
+    out = {name: [] for name in fns}
+    for name in order * (n_turns // 2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        sync()
+        t0 = time.perf_counter()
+        start.record()
+        fns[name](passes)
+        end.record()
+        sync()
+        out[name].append((start.elapsed_time(end) / len(passes),
+                          (time.perf_counter() - t0) * 1e3 / len(passes)))
+    return out
+
+
+def phase_compiled(dev, card):
+    """14: the compiled frame (module docstring)."""
+    rp = scenes.config4_many_objects(0.0, device=dev)
+    passes = [dataclasses.replace(rp, transform=bench_transform(
+        rp.transform, i)) for i in MAIN_FRAMES]
+    ts = torch.stack([p.transform for p in passes])
+    res = {}
+
+    # (a) Host syncs of the eager routes: counted in "warn" mode, then
+    # each route again in "error" mode.
+    syncs = {}
+    for name, (n, fn) in sync_routes(rp, passes).items():
+        fn()  # warm-up: the constants and the kernel library
+        sync()
+        syncs[name] = sync_count(fn) / n
+        sync_free(fn, name)
+    ttex.TEX_WINDOWED = "adaptive"
+    try:
+        render(passes[0])
+        adaptive = sync_count(lambda: [render(p) for p in passes]) / len(
+            passes)
+    finally:
+        ttex.TEX_WINDOWED = "0"
+    print(f"host syncs per frame under sync debug mode (warn count; every "
+          f"route also ran clean in \"error\" mode): {json.dumps(syncs)}; "
+          f"\"adaptive\" (its one documented predicate read): {adaptive}",
+          flush=True)
+    assert all(v == 0 for v in syncs.values()), syncs
+    assert adaptive <= 1, adaptive
+    res["syncs_per_frame"] = dict(syncs, adaptive=adaptive)
+
+    # (b) Replays equal the eager frames bit for bit: render_batch (one
+    # capture on frame 0, spill frames 120, 240 and 600 replayed) in
+    # modes "0" and "1"; ids through the main path's geometry captured
+    # the same way; the counters hold the launches the device ran.
+    for mode in ("0", "1"):
+        ttex.TEX_WINDOWED = mode
+        try:
+            render(passes[0])
+            reset_counts()
+            eager = [render(p) for p in passes]
+            eager_counts = read_counts(f"eager frames, mode {mode}")
+            reset_counts()
+            fg.reset_routes()
+            batch = render_batch(rp, ts)
+            batch_counts = read_counts(f"render_batch, mode {mode}")
+            routes = dict(fg.routes)
+        finally:
+            ttex.TEX_WINDOWED = "0"
+        assert routes == {"capture": 1, "replay": len(passes) - 1,
+                          "eager": 0}, routes
+        assert batch_counts == eager_counts, (batch_counts, eager_counts)
+        for i, e, j in zip(MAIN_FRAMES, eager, range(len(passes))):
+            for got, want, what in ((batch.color[j][..., 3],
+                                     e.color[..., 3], "alpha"),
+                                    (batch.depth[j], e.depth, "depth"),
+                                    (batch.color[j], e.color, "color")):
+                assert_bit_equal(got, want, f"replayed frame {i} (mode "
+                                            f"{mode}) {what}")
+        print(f"mode {mode}: render_batch of {len(passes)} frames "
+              f"{list(MAIN_FRAMES)} (captured on frame 0, routes "
+              f"{json.dumps(routes)}) equals the eager frames in alpha, "
+              f"depth and color bit for bit; launches equal the eager "
+              f"frames' {json.dumps(batch_counts)}", flush=True)
+    reset_counts()
+    for i, (z, ids, out), p in zip(MAIN_FRAMES, replay_ids(rp, ts), passes):
+        ze, ie, oe = pipeline_frame(p)
+        assert_bit_equal(ids, ie, f"replayed frame {i} ids")
+        assert_bit_equal(z, ze, f"replayed frame {i} geometry depth")
+        assert_bit_equal(out, oe, f"replayed frame {i} planes")
+    print(f"the main path's geometry captured on frame 0 and replayed: "
+          f"ids, depth and planes of every frame equal the eager ones",
+          flush=True)
+
+    # (c) FrameLoop with a transform_fn replays; the camera path replays.
+    loop_ts = [bench_transform(rp.transform, i) for i in range(4)]
+    loop = FrameLoop(lambda t: rp, lambda t: loop_ts[round(t * 60)],
+                     RenderConfig(width=rp.width, height=rp.height,
+                                  time_step=1.0 / 60.0))
+    fg.reset_routes()
+    got = [loop.frame() for _ in loop_ts]
+    assert dict(fg.routes) == {"capture": 1, "replay": 3, "eager": 0}, \
+        fg.routes
+    for i, (fb, t) in enumerate(zip(got, loop_ts)):
+        want = render(dataclasses.replace(rp, transform=t))
+        assert_bit_equal(fb.color, want.color, f"FrameLoop frame {i} color")
+        assert_bit_equal(fb.depth, want.depth, f"FrameLoop frame {i} depth")
+    cams = [scenes.config4_camera(t, device=dev) for t in CAMERA_TIMES[:3]]
+    cam_batch = render_batch(cams[0], torch.stack([c.transform
+                                                   for c in cams]))
+    for j, c in enumerate(cams):
+        want = render(dataclasses.replace(cams[0], transform=c.transform))
+        assert_bit_equal(cam_batch.color[j], want.color,
+                         f"camera frame {j} replayed, color")
+        assert_bit_equal(cam_batch.depth[j], want.depth,
+                         f"camera frame {j} replayed, depth")
+    print(f"FrameLoop (transform_fn, {len(loop_ts)} frames) and "
+          f"render_batch of {len(cams)} camera frames (clip + perspective) "
+          f"replay bit for bit", flush=True)
+
+    # (d) The eager route, counted: the adaptive sampler and a texture
+    # that requires grad.
+    fg.reset_routes()
+    ttex.TEX_WINDOWED = "adaptive"
+    try:
+        render_batch(rp, ts[:2])
+    finally:
+        ttex.TEX_WINDOWED = "0"
+    tex = dataclasses.replace(rp.texture, data=rp.texture.data.clone()
+                              .requires_grad_(True))
+    render_batch(dataclasses.replace(rp, texture=tex), ts[:2])
+    print(f"eager route: render_batch of 2 frames under \"adaptive\" and "
+          f"of 2 with a texture that requires grad: routes "
+          f"{json.dumps(fg.routes)}", flush=True)
+    assert fg.routes["eager"] == 4 and fg.routes["replay"] == 0, fg.routes
+    res["eager_route"] = dict(fg.routes)
+
+    # (e) ms/frame eager against replayed, in turns; device time and
+    # kernels per frame of each.
+    for mode in ("0", "1"):
+        ttex.TEX_WINDOWED = mode
+        try:
+            graph = fg.FrameGraph()
+            sync()
+            t0 = time.perf_counter()
+            graph(passes[0])
+            sync()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            render(passes[0])
+            sync()
+            eager_ms = (time.perf_counter() - t0) * 1e3
+            print(f"mode {mode}: the first frame of a FrameGraph (an eager "
+                  f"frame and the capture) {first_ms} ms, an eager frame "
+                  f"{eager_ms} ms (host clock to synchronize, {card})",
+                  flush=True)
+            res[f"capture_ms_mode_{mode}"] = first_ms
+            fns = {"eager": lambda ps_: [render(p) for p in ps_],
+                   "replay": lambda ps_: [graph(p) for p in ps_]}
+            turns = timed_turns(fns, passes, 4)
+            prof = {name: top_device_ops(lambda f=f: f(passes),
+                                         f"{len(passes)} frames, {name}, "
+                                         f"mode {mode}")
+                    for name, f in fns.items()}
+        finally:
+            ttex.TEX_WINDOWED = "0"
+        for name in fns:
+            ev = [x for x, _ in turns[name]]
+            host = [y for _, y in turns[name]]
+            dev_ms, n_k, n_c = prof[name]
+            res[f"{name}_mode_{mode}"] = dict(
+                ms_events=ev, ms_host=host,
+                device_ms=dev_ms / len(passes),
+                kernels=n_k / len(passes), copies=n_c / len(passes))
+            print(f"mode {mode}, {name}: ms/frame (CUDA events, {card}) "
+                  f"{ev}, host clock {host}; device ms/frame "
+                  f"{dev_ms / len(passes)} in {n_k / len(passes)} kernels "
+                  f"and {n_c / len(passes)} copies a frame (profiled)",
+                  flush=True)
+
+    # (f) Peak memory of render_batch (16 frames) with the graph and of
+    # the same frames rendered eagerly into preallocated outputs.
+    ts16 = torch.stack([bench_transform(rp.transform, i)
+                        for i in range(CHUNK_FRAMES)])
+
+    def eager_batch():
+        color = torch.empty((len(ts16), rp.height, rp.width, 4), device=dev)
+        depth = torch.empty((len(ts16), rp.height, rp.width), device=dev)
+        for i, t in enumerate(ts16):
+            fb = render(dataclasses.replace(rp, transform=t))
+            color[i], depth[i] = fb.color, fb.depth
+            del fb
+        return color, depth
+
+    peak = {}
+    for name, fn in (("render_batch (graph)", lambda: render_batch(rp, ts16)),
+                     ("eager loop", eager_batch)):
+        out = None
+        sync()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base_mem = torch.cuda.memory_allocated(dev)
+        out = fn()
+        sync()
+        peak[name] = (torch.cuda.max_memory_allocated(dev) - base_mem) / 2**20
+        del out
+    print(f"peak memory above the scene, {CHUNK_FRAMES} frames at "
+          f"{rp.width}x{rp.height} (max_memory_allocated, MiB): "
+          f"{json.dumps(peak)}", flush=True)
+    res["peak_mib"] = peak
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2050,6 +2486,10 @@ def main():
     phase_host(dev, card, main_ms)                           # phase 13
     sync()
     print(f"phase 13 took {time.perf_counter() - t13:.1f} s", flush=True)
+    t14 = time.perf_counter()
+    phase_compiled(dev, card)                                # phase 14
+    sync()
+    print(f"phase 14 took {time.perf_counter() - t14:.1f} s", flush=True)
 
     src = "software_renderer_tpu_torch/csrc/"
     meta = {

@@ -48,11 +48,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "sr_fe": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P),
     "sr_fused": (_P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                 _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+                 _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
     "sr_visibility_scratch": (_I, _I, _I, _P),
-    "sr_visibility_merge": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
-                            _P),
-    "sr_resolve_merge": (_P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P),
+    "sr_visibility_merge": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
+                            _P, _P),
+    "sr_resolve_merge": (_P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P),
     "sr_visibility": (_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     "sr_binned_vis": (_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P,
                       _P, _P),

@@ -38,6 +38,14 @@
 // atomics, so the strict < (first drawn wins ties) and the seeded lex
 // (depth, id) rule hold as in the plain versions.
 //
+// The spill branch is made on the device. JAX chooses between the static
+// and the seeded kernel with lax.cond(n_overflow == 0, ...)
+// (software_renderer_tpu/ops/binning.py:1471); here a seeded launch may
+// be given the overflow count n_seed, a device pointer, and every block
+// reads it and runs the static walk when it is 0: the same instructions
+// as a static launch, reading no seed, so a spill-free frame is the static
+// walk's bit for bit, and the count never reaches the host.
+//
 // The walk keeps no attribute accumulators: a pixel keeps its depth, id
 // and the row of the record that won it, and the epilogue evaluates the
 // winner's planes, reading them from that row (or the seed G-buffer where
@@ -111,6 +119,7 @@ struct WalkArgs {
   const float* z_seed;   // seeded only: [H, W]
   const int* id_seed;    // seeded only: [H, W]
   const float* gb_seed;  // seeded only: [n_channels, H, W]
+  const int* n_seed;     // seeded only: the overflow count, or null (seed)
   float* z_out;          // [H, W]
   int* id_out;           // [H, W]
   float* out;            // K2: [kNOut, H, W]
@@ -145,15 +154,19 @@ __device__ __forceinline__ bool meets(unsigned box, int wx, int wy) {
 }
 
 // Channel a of a pixel: the winning row's plane at the pixel centre, else
-// the seed G-buffer's value (seeded), else 0.
+// the seed G-buffer's value where the seed's id won the pixel (seeded),
+// else 0. An uncovered pixel's channels are zeroed by the epilogue, so
+// the seed G-buffer is read only where the seed won (the overflow
+// resolve writes only those pixels).
 template <bool kSeeded>
-__device__ __forceinline__ float chan(int a, int row, size_t p, size_t npix,
-                                      float xs, float ys, const WalkArgs& g) {
+__device__ __forceinline__ float chan(int a, int row, bool covered, size_t p,
+                                      size_t npix, float xs, float ys,
+                                      const WalkArgs& g) {
   if (row >= 0) {
     const float* r = g.rows + (size_t)row * g.wtot + kCols + 3 * a;
     return __ldg(r) * xs + __ldg(r + 1) * ys + __ldg(r + 2);
   }
-  return kSeeded ? g.gb_seed[a * npix + p] : 0.0f;
+  return (kSeeded && covered) ? g.gb_seed[a * npix + p] : 0.0f;
 }
 
 // fused_epilogue (inside perspective_epilogue with kPersp) for one pixel;
@@ -165,11 +178,12 @@ __device__ __forceinline__ void epilogue(int row, size_t p, size_t npix,
                                          const WalkArgs& g, float* outs) {
   float rec = 1.0f;
   if constexpr (kPersp) {
-    const float invw = chan<kSeeded>(g.invw_off, row, p, npix, xs, ys, g);
+    const float invw =
+        chan<kSeeded>(g.invw_off, row, covered, p, npix, xs, ys, g);
     rec = 1.0f / (covered ? invw : 1.0f);
   }
   auto ch = [&](int a) {
-    const float v = chan<kSeeded>(a, row, p, npix, xs, ys, g);
+    const float v = chan<kSeeded>(a, row, covered, p, npix, xs, ys, g);
     return kPersp ? v * rec : v;
   };
   float base[3];
@@ -204,13 +218,20 @@ __device__ __forceinline__ void epilogue(int row, size_t p, size_t npix,
     outs[k] = covered ? outs[k] : 0.0f;
 }
 
-// kShade: K2 (winner rows and the epilogue); else K5 (depth and id only).
+// Shared memory of a walk block.
+struct WalkShared {
+  float srec[kCols][kChunk];
+  unsigned sbox[kChunk];
+  float prm[32];
+};
+
+// One block's walk of its slab. kShade: K2 (winner rows and the
+// epilogue); else K5 (depth and id only).
 template <bool kShade, bool kSeeded, bool kLit, bool kTex, bool kPersp>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-    walk_kernel(const WalkArgs g) {
-  __shared__ float srec[kCols][kChunk];
-  __shared__ unsigned sbox[kChunk];
-  __shared__ float prm[32];
+__device__ __forceinline__ void walk(const WalkArgs& g, WalkShared& sh) {
+  auto& srec = sh.srec;
+  auto& sbox = sh.sbox;
+  auto& prm = sh.prm;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.x;
   const int band_h = g.tile_h / g.bands;
@@ -315,6 +336,20 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 }
 
 template <bool kShade, bool kSeeded, bool kLit, bool kTex, bool kPersp>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    walk_kernel(const WalkArgs g) {
+  __shared__ WalkShared sh;
+  if constexpr (kSeeded) {
+    // JAX's lax.cond(n_overflow == 0, static, seeded), per block.
+    if (g.n_seed != nullptr && __ldg(g.n_seed) <= 0) {
+      walk<kShade, false, kLit, kTex, kPersp>(g, sh);
+      return;
+    }
+  }
+  walk<kShade, kSeeded, kLit, kTex, kPersp>(g, sh);
+}
+
+template <bool kShade, bool kSeeded, bool kLit, bool kTex, bool kPersp>
 int launch(int nbins, cudaStream_t s, const WalkArgs& g) {
   const dim3 grid(nbins, (g.tile_h / g.bands) / kSlabH);
   if (nbins > 0)
@@ -346,8 +381,9 @@ extern "C" int sr_fused(const float* rows, const int* bin_start, int nbins,
                         int tile_h, int bands, int gw, int n_channels,
                         int rgb_off, int nrm_off, int uv_off, int lit, int tex,
                         int persp, const float* z_seed, const int* id_seed,
-                        const float* gb_seed, float* z_out, int* id_out,
-                        float* out, void* stream) {
+                        const float* gb_seed, const int* n_seed,
+                        float* z_out, int* id_out, float* out,
+                        void* stream) {
   // A perspective plan's channels are the inner plan's, then 1/w.
   const int inner = n_channels - (persp ? 1 : 0);
   const auto fits = [&](int off, int size) {
@@ -362,8 +398,8 @@ extern "C" int sr_fused(const float* rows, const int* bin_start, int nbins,
                    n_tri,   width,   height,    y_start,
                    tile_h,  bands,   gw,        params,
                    rgb_off, nrm_off, uv_off,    inner,
-                   z_seed,  id_seed, gb_seed,   z_out,
-                   id_out,  out};
+                   z_seed,  id_seed, gb_seed,   n_seed,
+                   z_out,   id_out,  out};
   const cudaStream_t s = (cudaStream_t)stream;
   if (persp)
     return z_seed ? launch_fused<true, true>(lit, tex, nbins, s, g)

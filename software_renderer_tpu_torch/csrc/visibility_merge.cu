@@ -5,7 +5,12 @@
 //
 //   merge (kClear = false), entry sr_visibility_merge: start from the given
 //     buffer and keep the lexicographic (depth, id) minimum, the overflow
-//     pass of the binned paths; plain version visibility_merge_plain;
+//     pass of the binned paths; plain version visibility_merge_plain. The
+//     records are a static list and a device count n_live (JAX's n_live,
+//     rasterize_pallas.py:227) says how many are live: the span and
+//     super-tile passes read it and skip the rest, so a frame with no
+//     spill pays the launches and the copy of its seed, and no count
+//     reaches the host;
 //   clear (kClear = true), entry sr_visibility: start from (inf, -1) in
 //     registers and replace only on a strictly smaller depth, walking the
 //     records in the order given (ascending id: the first drawn wins ties),
@@ -93,13 +98,21 @@ __device__ __forceinline__ bool centre_range(float lo, float hi, int a, int b,
   return true;
 }
 
-// Each record's span: the pixels of [0, kMaxCoord) in x and in global y
-// whose centres pass its bbox clamp, as short4 (x0, x1, y0, y1),
-// inclusive; (1, 0, 1, 0) where there is none.
+// The live records of a call: the first min(n, *n_live), or all n when
+// n_live is null.
+__device__ __forceinline__ int live_count(int n, const int* n_live) {
+  return n_live == nullptr ? n : max(0, min(n, __ldg(n_live)));
+}
+
+// Each live record's span: the pixels of [0, kMaxCoord) in x and in global
+// y whose centres pass its bbox clamp, as short4 (x0, x1, y0, y1),
+// inclusive; (1, 0, 1, 0) where there is none. Records past the live count
+// are never read.
 __global__ void span_kernel(const float* __restrict__ rec, int n,
+                            const int* __restrict__ n_live,
                             short4* __restrict__ spans) {
   const int k = blockIdx.x * kThreads + threadIdx.x;
-  if (k >= n) return;
+  if (k >= live_count(n, n_live)) return;
   const float2 lo = __ldg(reinterpret_cast<const float2*>(
       rec + (size_t)k * kRec + 10));
   const float2 hi = __ldg(reinterpret_cast<const float2*>(
@@ -162,12 +175,14 @@ __device__ __forceinline__ int compact(const bool (&pass)[kPerThread],
   return count + __shfl_sync(0xffffffffu, incl, 31);
 }
 
-// Block (c, s): records [c * kChunk, (c + 1) * kChunk) whose span meets
-// super-tile s, ascending, to list[s * n + c * kChunk ...], their count
-// to cnt[s * gridDim.x + c].
+// Block (c, s): the live records of [c * kChunk, (c + 1) * kChunk) whose
+// span meets super-tile s, ascending, to list[s * n + c * kChunk ...],
+// their count to cnt[s * gridDim.x + c] (0 for a chunk past the live
+// count).
 __global__ void __launch_bounds__(kThreads) super_kernel(
-    const short4* __restrict__ spans, int n, int width, int height,
-    int y_start, int* __restrict__ list, int* __restrict__ cnt) {
+    const short4* __restrict__ spans, int n, const int* __restrict__ n_live,
+    int width, int height, int y_start, int* __restrict__ list,
+    int* __restrict__ cnt) {
   __shared__ int swarp[2][32];
   const int tid = threadIdx.x;
   const int sgw = (width + kSuperW - 1) / kSuperW;
@@ -176,7 +191,7 @@ __global__ void __launch_bounds__(kThreads) super_kernel(
   const int xb = min(sx0 + kSuperW, width);
   const int ya = sy0 + y_start, yb = min(sy0 + kSuperH, height) + y_start;
   const int c0 = blockIdx.x * kChunk;
-  const int c1 = min(c0 + kChunk, n);
+  const int c1 = min(c0 + kChunk, live_count(n, n_live));
   int* out = list + (size_t)blockIdx.y * n + c0;
   int count = 0, parity = 0;
   for (int base = c0; base < c1; base += kPass) {
@@ -199,6 +214,7 @@ template <bool kClear>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) visibility_kernel(
     const float* __restrict__ rec, const short4* __restrict__ spans, int n,
     const int* __restrict__ list, const int* __restrict__ cnt, int chunks,
+    const int* __restrict__ n_live,
     const float* __restrict__ z_in, const int* __restrict__ id_in, int width,
     int height, int y_start, float* __restrict__ z_out,
     int* __restrict__ id_out) {
@@ -226,6 +242,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) visibility_kernel(
   const int s = (ty0 / kSuperH) * sgw + tx0 / kSuperW;
   const int* slst = list + (size_t)s * n;
   const int* scnt = cnt + (size_t)s * chunks;
+  // The chunks that hold a live record.
+  const int walk = (live_count(n, n_live) + kChunk - 1) / kChunk;
 
   float z[kRows];
   int id[kRows];
@@ -243,7 +261,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) visibility_kernel(
     // Cull passes over the super-tile's chunks, in order, until the list
     // may not take another pass or the chunks end.
     int count = 0;  // survivors listed, the same in every thread
-    while (chunk < chunks && count <= kCap - kPass) {
+    while (chunk < walk && count <= kCap - kPass) {
       const int m = __ldg(scnt + chunk);
       if (base >= m) {
         ++chunk;
@@ -308,7 +326,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) visibility_kernel(
       }
       __syncthreads();  // the staged records and the list are reused
     }
-    if (chunk >= chunks) break;
+    if (chunk >= walk) break;
   }
 
 #pragma unroll
@@ -330,9 +348,10 @@ int supers(int width, int height) {
 int chunks_of(int n) { return (n + kChunk - 1) / kChunk; }
 
 template <bool kClear>
-int launch(const float* rec, int n, void* spans, int* list, int* cnt,
-           const float* z_in, const int* id_in, int width, int height,
-           int y_start, float* z_out, int* id_out, void* stream) {
+int launch(const float* rec, int n, const int* n_live, void* spans,
+           int* list, int* cnt, const float* z_in, const int* id_in,
+           int width, int height, int y_start, float* z_out, int* id_out,
+           void* stream) {
   if (n < 0 || width < 0 || height < 0 || y_start < 0 ||
       width > kMaxCoord || height > kMaxCoord - y_start)
     return (int)cudaErrorInvalidValue;
@@ -341,17 +360,17 @@ int launch(const float* rec, int n, void* spans, int* list, int* cnt,
   short4* sp = static_cast<short4*>(spans);
   const int chunks = chunks_of(n);
   if (n > 0) {
-    span_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(rec, n,
-                                                                     sp);
+    span_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+        rec, n, n_live, sp);
     super_kernel<<<dim3(chunks, supers(width, height)), kThreads, 0, st>>>(
-        sp, n, width, height, y_start, list, cnt);
+        sp, n, n_live, width, height, y_start, list, cnt);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid((width + kTileW - 1) / kTileW, (height + kTileH - 1) / kTileH);
   visibility_kernel<kClear><<<grid, kThreads, 0, st>>>(
-      rec, sp, n, list, cnt, chunks, z_in, id_in, width, height, y_start,
-      z_out, id_out);
+      rec, sp, n, list, cnt, chunks, n_live, z_in, id_in, width, height,
+      y_start, z_out, id_out);
   return (int)cudaGetLastError();
 }
 
@@ -368,18 +387,19 @@ extern "C" int sr_visibility_scratch(int n, int width, int height,
   return (int)cudaSuccess;
 }
 
+// n_live: a device pointer to the live record count, or null for all n.
 extern "C" int sr_visibility_merge(const float* rec, int n, void* spans,
-                                   int* list, int* cnt, const float* z_in,
-                                   const int* id_in, int width, int height,
-                                   int y_start, float* z_out, int* id_out,
-                                   void* stream) {
-  return launch<false>(rec, n, spans, list, cnt, z_in, id_in, width, height,
-                       y_start, z_out, id_out, stream);
+                                   int* list, int* cnt, const int* n_live,
+                                   const float* z_in, const int* id_in,
+                                   int width, int height, int y_start,
+                                   float* z_out, int* id_out, void* stream) {
+  return launch<false>(rec, n, n_live, spans, list, cnt, z_in, id_in, width,
+                       height, y_start, z_out, id_out, stream);
 }
 
 extern "C" int sr_visibility(const float* rec, int n, void* spans, int* list,
                              int* cnt, int width, int height, int y_start,
                              float* z_out, int* id_out, void* stream) {
-  return launch<true>(rec, n, spans, list, cnt, nullptr, nullptr, width,
-                      height, y_start, z_out, id_out, stream);
+  return launch<true>(rec, n, nullptr, spans, list, cnt, nullptr, nullptr,
+                      width, height, y_start, z_out, id_out, stream);
 }

@@ -26,3 +26,46 @@ def default_device() -> torch.device:
 def or_default(device) -> torch.device:
     """``device`` itself, or :func:`default_device` when it is None."""
     return default_device() if device is None else torch.device(device)
+
+
+# Tensors of host values, built once per (values, dtype, device).
+_constants: dict = {}
+
+
+def _frozen(values):
+    """``values`` with every list a tuple, as a dictionary key."""
+    if isinstance(values, (list, tuple)):
+        return tuple(_frozen(v) for v in values)
+    return values
+
+
+def constant(values, device, dtype=torch.float32) -> torch.Tensor:
+    """A tensor of ``values`` (a number or nested sequence) on
+    ``device``, built at the first call and shared by every later one,
+    so that a frame copies nothing from the host: a copy from pageable
+    host memory waits on the host and cannot be captured into a CUDA
+    graph (parallel/frame_graph.py). Callers must not write to it."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (_frozen(values), dtype, device)
+    t = _constants.get(key)
+    if t is None:
+        t = _constants[key] = torch.tensor(values, dtype=dtype, device=device)
+    return t
+
+
+def on_device(value, device, dtype=torch.float32) -> torch.Tensor:
+    """``value`` (a tensor, number or sequence) as a ``dtype`` tensor on
+    ``device``. Host values bound for a card (numbers, sequences, CPU
+    tensors that need no gradient) come from :func:`constant`; a tensor
+    already on a card is cast in place of a copy."""
+    device = torch.device(device)
+    if isinstance(value, torch.Tensor):
+        if (device.type == "cpu" or value.device.type != "cpu"
+                or value.requires_grad):
+            return value.to(dtype=dtype, device=device)
+        value = value.tolist()
+    if device.type == "cpu":
+        return torch.as_tensor(value, dtype=dtype)
+    return constant(value, device, dtype)

@@ -9,6 +9,16 @@ The other triangles spill to the overflow path, which rasterizes them
 into seed buffers (ops/rasterize_kernel.py, :func:`resolve_merge_kernel`)
 that the fused kernel then starts from.
 
+Shapes are static, as in JAX, and every count stays on the device, so a
+frame never waits on the host and a CUDA graph can capture it
+(parallel/frame_graph.py): the pair list has JAX's capacity
+``pairs_cap`` with a -1 tail, the overflow count is a 0-d tensor, the
+overflow ids are a static list (:func:`overflow_ids`, JAX's
+``overflow_id_waves`` in one wave), and the merge kernels (K3, K4) take
+the live count as a device pointer (JAX's ``n_live``) while K2 reads
+the same count to choose between its static and seeded walks (JAX's
+``lax.cond(n_overflow == 0, ...)``).
+
 Semantics are the JAX package's ops/binning.py; its TPU-only devices are
 not ported: the matmul cumsum (``torch.cumsum`` on int64 is exact), the
 two-sort filler layout and the live-first chunk permutation (CUDA blocks
@@ -42,7 +52,7 @@ import torch
 from .. import _cuda
 from . import frontend as fe
 from .rasterize_kernel import (CHUNK, PLAIN_BLOCK, TILE_H, TILE_W,
-                               _poison_row, visibility_merge_kernel)
+                               live_rows, visibility_merge_kernel)
 from .rasterize_ref import pixel_centers
 from .shading import (_chan_offset, fused_epilogue, fused_output_channels,
                       perspective_epilogue)
@@ -71,12 +81,13 @@ MAX_PERSP_CHANNELS = 9
 class BinInfo:
     """CSR bin lists: bin b's ids are ``ids[bin_start[b]:bin_start[b+1]]``
     in ascending order. Bin index ``(tile_row * gw + tile_col) * bands +
-    band``."""
+    band``. Shapes depend on T and the frame only (JAX's ``BinInfo``):
+    ``bin_start[nbins]`` is the live pair count."""
 
     bin_start: torch.Tensor      # [nbins + 1] int32
-    ids: torch.Tensor            # [n_pairs] int32
+    ids: torch.Tensor            # [pairs_cap] int32, -1 past the live pairs
     overflow_mask: torch.Tensor  # [T] bool — triangle spilled
-    n_overflow: int
+    n_overflow: torch.Tensor     # [] int32 on the device
 
 
 def build_bins(setup, *, width: int, height: int,
@@ -93,6 +104,13 @@ def build_bins(setup, *, width: int, height: int,
     (the prefix is monotone, so once past the budget every later
     triangle spills). Every other valid triangle overflows. ``setup``: a
     PlanarSetup, or a TriangleSetup (the near-plane clip's).
+
+    JAX's compact emission with no host sync (JAX binning.py:228-300):
+    slot s of the ``pairs_cap = min(budget, ceil(T * kmax / chunk) *
+    chunk)`` slots belongs to the binned triangle whose range of
+    exclusive slot starts holds it (a ``searchsorted``); dead slots are
+    keyed past the last bin, so the stable sort leaves them at the end,
+    and ``bin_start`` is each bin's first position in the sorted keys.
     """
     ps = fe.as_planar(setup)
     if tile_h % bands or (tile_h // bands) % 8:
@@ -120,24 +138,43 @@ def build_bins(setup, *, width: int, height: int,
     binned = small & (cum <= budget_pairs)
     overflow = valid & ~binned
 
-    tri = torch.nonzero(binned).squeeze(1)
-    reps = nspan[tri]
-    src = torch.repeat_interleave(
-        torch.arange(tri.numel(), device=dev), reps)
-    k = (torch.arange(src.numel(), device=dev)
-         - (torch.cumsum(reps, 0) - reps)[src])
-    sw = span_w[tri][src].to(torch.int64)
-    band_row = ty0[tri][src].to(torch.int64) + k // sw
-    tile_col = tx0[tri][src].to(torch.int64) + k % sw
+    pairs_cap = int(min(budget_pairs, -(-(t * kmax) // chunk) * chunk))
+    nspb = torch.where(binned, nspan, 0)
+    sb = torch.cumsum(nspb, 0) - nspb          # exclusive slot starts
+    slots = torch.arange(pairs_cap, device=dev)
+    src = torch.searchsorted(sb, slots, right=True) - 1
+    src_c = torch.clamp(src, 0, max(t - 1, 0))
+    k = slots - sb[src_c]
+    live = (src >= 0) & (k < nspb[src_c])
+    k = torch.where(live, k, 0)
+    sw = torch.where(live, span_w[src_c].to(torch.int64), 1)
+    band_row = ty0[src_c].to(torch.int64) + k // sw
+    tile_col = tx0[src_c].to(torch.int64) + k % sw
     bin_of = ((band_row // bands) * gw + tile_col) * bands + band_row % bands
-    order = torch.sort(bin_of, stable=True).indices
-    counts = torch.bincount(bin_of, minlength=nbins)
-    bin_start = torch.zeros(nbins + 1, dtype=torch.int32, device=dev)
-    bin_start[1:] = torch.cumsum(counts, 0)
+    keys, order = torch.sort(torch.where(live, bin_of, nbins), stable=True)
+    bin_start = torch.searchsorted(
+        keys, torch.arange(nbins + 1, device=dev)).to(torch.int32)
     return BinInfo(bin_start=bin_start,
-                   ids=tri[src][order].to(torch.int32).contiguous(),
+                   ids=torch.where(live, src_c, -1)[order].to(torch.int32),
                    overflow_mask=overflow,
-                   n_overflow=int(overflow.sum()))
+                   n_overflow=overflow.sum(dtype=torch.int32))
+
+
+def overflow_ids(overflow_mask, chunk: int = CHUNK) -> torch.Tensor:
+    """The spilled triangles' ids, ascending, then -1: a static
+    [ceil(T / chunk) * chunk] int32 list (at least one chunk), the
+    length of :func:`ops.frontend.pack_records_planar`'s records (JAX's
+    ``overflow_id_waves`` as one wave: the kernels stop at the count).
+    Positions come from a cumsum and a scatter, with no host sync."""
+    t = overflow_mask.shape[0]
+    dev = overflow_mask.device
+    cap = -(-max(t, 1) // chunk) * chunk
+    pos = torch.cumsum(overflow_mask, 0)
+    ids = torch.full((cap + 1,), -1, dtype=torch.int32, device=dev)
+    # Triangles that did not spill all land in the dropped last slot.
+    ids.scatter_(0, torch.where(overflow_mask, pos - 1, cap),
+                 torch.arange(t, dtype=torch.int32, device=dev))
+    return ids[:cap]
 
 
 def gather_stream(table, ids, poison):
@@ -172,47 +209,74 @@ def _write_planes(gb, rows, row_keys, pixel_keys, hit, *, y_start: int):
 
 
 def resolve_merge_plain(rows, tid, gb_in, *, width: int, height: int,
-                        y_start: int = 0):
-    """Plain version: where ``tid`` equals a row's id, that row's planes
-    evaluated at the pixel; ``gb_in`` elsewhere."""
+                        y_start: int = 0, n_live=None):
+    """Plain version: where ``tid`` equals the id of one of the first
+    ``n_live`` rows, that row's planes evaluated at the pixel; ``gb_in``
+    elsewhere (0 where it is None)."""
+    rows = live_rows(rows, n_live)
     q = tid.reshape(-1).contiguous()
-    return _write_planes(gb_in.clone(), rows,
+    gb = (torch.zeros((_row_channels(rows), height, width),
+                      device=rows.device)
+          if gb_in is None else gb_in.clone())
+    return _write_planes(gb, rows,
                          rows[:, REC_BASE - 1].to(torch.int32).contiguous(),
                          q, q >= 0, y_start=y_start)
 
 
+def _row_channels(rows) -> int:
+    """Attribute channels of [N, 11 + 3A] stream rows."""
+    if (rows.shape[1] - REC_BASE) % 3 or rows.shape[1] < REC_BASE:
+        raise ValueError(f"rows must be [N, {REC_BASE} + 3A], got "
+                         f"{tuple(rows.shape)}")
+    return (rows.shape[1] - REC_BASE) // 3
+
+
 def resolve_merge_kernel(rows, tid, gb_in, *, width: int, height: int,
-                         y_start: int = 0):
+                         y_start: int = 0, n_live=None):
     """Overflow G-buffer resolve.
 
-    rows: [N, 11 + 3A] float32 stream rows sorted by id (column 10);
-    tid: [H, W] int32 winner ids; gb_in: [A, H, W] float32 seed planes.
-    Returns [A, H, W]. CPU tensors run :func:`resolve_merge_plain`; CUDA
-    tensors launch csrc/resolve_merge.cu.
+    rows: [N, 11 + 3A] float32 stream rows, the first ``n_live`` sorted
+    by id (column 10); tid: [H, W] int32 winner ids; gb_in: [A, H, W]
+    float32 seed planes, or None: then only the pixels whose winner is a
+    live row are defined (the kernel writes nothing else, and with a
+    count of 0 nothing at all; the plain version writes 0 there), which
+    is all the fused kernel reads of its seed planes; n_live: None (every
+    row is live) or a 0-d int32 tensor on the rows' device, JAX's
+    ``n_live``: rows at or past it are never read, so a static list
+    serves every frame and a count of 0 returns the seed. Returns
+    [A, H, W]. CPU tensors run :func:`resolve_merge_plain`; CUDA tensors
+    launch csrc/resolve_merge.cu.
 
     What bounds it on the card: memory (one id read and A seed reads and
     writes per pixel). The TPU kernel walks every record per tile; here
-    each pixel binary-searches its id among the sorted rows.
+    each pixel binary-searches its id among the live sorted rows.
     """
     if rows.device.type == "cpu":
         return resolve_merge_plain(rows, tid, gb_in, width=width,
-                                   height=height, y_start=y_start)
+                                   height=height, y_start=y_start,
+                                   n_live=n_live)
     dev = rows.device
-    a = gb_in.shape[0]
     _cuda.require(rows, torch.float32, "rows", ndim=2)
-    if rows.shape[1] != REC_BASE + 3 * a:
-        raise ValueError(f"rows must be [N, {REC_BASE + 3 * a}]")
+    a = _row_channels(rows)
     _cuda.require(tid, torch.int32, "tid", device=dev, shape=(height, width))
-    _cuda.require(gb_in, torch.float32, "gb_in", device=dev,
-                  shape=(a, height, width))
-    gb = torch.empty_like(gb_in)
+    if gb_in is not None:
+        _cuda.require(gb_in, torch.float32, "gb_in", device=dev,
+                      shape=(a, height, width))
+    if n_live is not None:
+        _cuda.require(n_live, torch.int32, "n_live", device=dev, shape=())
+    gb = torch.empty((a, height, width), dtype=torch.float32, device=dev)
     lib = _cuda.lib()
     _cuda.launches["resolve_merge"] += 1
     _cuda.check(lib.sr_resolve_merge(
-        rows.data_ptr(), rows.shape[0], rows.shape[1], a, tid.data_ptr(),
-        gb_in.data_ptr(), width, height, y_start, gb.data_ptr(),
+        rows.data_ptr(), rows.shape[0], _ptr(n_live), rows.shape[1], a,
+        tid.data_ptr(), _ptr(gb_in), width, height, y_start, gb.data_ptr(),
         _cuda.stream_of(rows)))
     return gb
+
+
+def _ptr(t):
+    """A tensor's device pointer, None (NULL) for None."""
+    return None if t is None else t.data_ptr()
 
 
 # ---------------------------------------------------------------------------
@@ -339,12 +403,15 @@ def _walk_bins_plain(rows, bin_start, *, width: int, height: int,
 def fused_plain(rows, bin_start, params, *, bbox, width: int, height: int,
                 chans, has_light: bool, has_texture: bool, bands: int,
                 y_start: int = 0, tile_h: int = TILE_H,
-                tile_w: int = TILE_W, seeds=None, perspective: bool = False):
+                tile_w: int = TILE_W, seeds=None, n_overflow=None,
+                perspective: bool = False):
     """Plain version of the fused kernel: :func:`_walk_bins_plain`, then
     :func:`ops.shading.fused_epilogue` over the whole frame (inside
     :func:`ops.shading.perspective_epilogue` with ``perspective``).
     ``bbox`` is the kernel's cull and changes no pixel; it is not read
-    here."""
+    here. The seeds are used unless ``n_overflow`` is given and 0."""
+    if n_overflow is not None and int(n_overflow) == 0:
+        seeds = None
     z, ids, acc = _walk_bins_plain(
         rows, bin_start, width=width, height=height,
         n_channels=sum(s for _, s in chans) + perspective, bands=bands,
@@ -377,7 +444,8 @@ def _require_walk(rows, bin_start, bbox, *, width: int, height: int,
 def fused_kernel(rows, bin_start, params, *, bbox, width: int, height: int,
                  chans, has_light: bool, has_texture: bool, bands: int,
                  y_start: int = 0, tile_h: int = TILE_H,
-                 tile_w: int = TILE_W, seeds=None, perspective: bool = False):
+                 tile_w: int = TILE_W, seeds=None, n_overflow=None,
+                 perspective: bool = False):
     """Fused visibility + attribute planes + shading epilogue.
 
     rows: [n_pairs, 11 + 3A] float32 stream rows in bin order; bin_start:
@@ -386,7 +454,12 @@ def fused_kernel(rows, bin_start, params, *, bbox, width: int, height: int,
     inclusive pixel bbox (x0, y0, x1, y1) per triangle id
     (:func:`ops.frontend.bbox_table`); seeds: None, or (z [H, W] float32,
     id [H, W] int32, gb [A, H, W] float32) to start from with the lex
-    (depth, id) rule. Returns (z [H, W], id [H, W], out [n_out, H, W]).
+    (depth, id) rule, the seed planes read only where the seed's id wins
+    a pixel; n_overflow: None, or a 0-d int32 tensor on the rows'
+    device: JAX's ``lax.cond(n_overflow == 0, static, seeded)`` made on
+    the device, the launch walks from the seeds only when the count is
+    above 0 and otherwise equals the static walk bit for bit, reading no
+    seed. Returns (z [H, W], id [H, W], out [n_out, H, W]).
     CPU tensors run :func:`fused_plain`; CUDA tensors launch
     csrc/fused.cu.
 
@@ -414,7 +487,8 @@ def fused_kernel(rows, bin_start, params, *, bbox, width: int, height: int,
                            height=height, chans=chans, has_light=has_light,
                            has_texture=has_texture, bands=bands,
                            y_start=y_start, tile_h=tile_h, tile_w=tile_w,
-                           seeds=seeds, perspective=perspective)
+                           seeds=seeds, n_overflow=n_overflow,
+                           perspective=perspective)
     dev = rows.device
     a = sum(s for _, s in chans) + perspective
     _require_walk(rows, bin_start, bbox, width=width, height=height,
@@ -436,6 +510,9 @@ def fused_kernel(rows, bin_start, params, *, bbox, width: int, height: int,
                       shape=(height, width))
         _cuda.require(gb_s, torch.float32, "gb seed", device=dev,
                       shape=(a, height, width))
+        if n_overflow is not None:
+            _cuda.require(n_overflow, torch.int32, "n_overflow", device=dev,
+                          shape=())
     lib = _cuda.lib()
     _cuda.launches["fused"] += 1
     if seeds is not None:
@@ -447,13 +524,14 @@ def fused_kernel(rows, bin_start, params, *, bbox, width: int, height: int,
     return card_fused(lib, rows, bin_start, params, bbox, width=width,
                       height=height, chans=chans, has_light=has_light,
                       has_texture=has_texture, bands=bands, y_start=y_start,
-                      tile_h=tile_h, seeds=seeds, perspective=perspective)
+                      tile_h=tile_h, seeds=seeds, n_overflow=n_overflow,
+                      perspective=perspective)
 
 
 def card_fused(lib, rows, bin_start, params, bbox, *, width: int,
                height: int, chans, has_light: bool, has_texture: bool,
                bands: int, y_start: int, tile_h: int, seeds=None,
-               perspective: bool = False):
+               n_overflow=None, perspective: bool = False):
     """Launch ``lib``'s fused kernel on checked CUDA inputs (those of
     :func:`fused_kernel`); returns (z, id, out)."""
     dev = rows.device
@@ -476,7 +554,9 @@ def card_fused(lib, rows, bin_start, params, bbox, *, width: int,
         width, height, y_start, tile_h, bands, gw,
         sum(s for _, s in chans) + perspective, off("rgb"), off("normal"),
         off("uv"), int(has_light and "normal" in names), int(has_texture),
-        int(perspective), *seed_ptrs, z.data_ptr(), ids.data_ptr(),
+        int(perspective), *seed_ptrs,
+        None if seeds is None else _ptr(n_overflow), z.data_ptr(),
+        ids.data_ptr(),
         out.data_ptr(), _cuda.stream_of(rows)))
     return z, ids, out
 
@@ -504,10 +584,14 @@ def fused_pipeline(setup, attrs, params, *, width: int,
     ``shading.perspective_vertex_attrs``), and the kernel runs its
     perspective plan (:func:`fused_kernel`).
 
-    Frames with overflow (unsafe triangles, spans past kmax, pairs past
-    the budget) first rasterize the overflow triangles into full-frame
-    (z, id, G-buffer) seeds with the merge kernels, then run the fused
-    kernel seeded from them (lex (depth, id) ties keep first-drawn-wins).
+    Overflow triangles (unsafe, spans past kmax, pairs past the budget)
+    are rasterized into full-frame (z, id, G-buffer) seeds by the merge
+    kernels, which the fused kernel starts from (lex (depth, id) ties
+    keep first-drawn-wins). No count reaches the host: the merges run on
+    every frame over the static overflow list and stop at the device
+    count, and the fused kernel reads the seeds only when the count is
+    above 0 (JAX's ``lax.cond(n_overflow == 0, fast, slow)``), so a
+    spill-free frame is the static walk's.
     """
     ps = fe.as_planar(setup)
     t = ps.num_triangles
@@ -523,26 +607,40 @@ def fused_pipeline(setup, attrs, params, *, width: int,
     table, a, poison = stream_table
     rows = gather_stream(table, info.ids, poison).contiguous()
     bbox = fe.bbox_table(ps)
-    seeds = None
-    if info.n_overflow:
-        dev = table.device
-        ov = torch.nonzero(info.overflow_mask).squeeze(1).to(torch.int32)
-        rec = gather_stream(fe.pack_records_planar(ps, chunk), ov,
-                            _poison_row(dev)).contiguous()
-        z_ov, id_ov = visibility_merge_kernel(
-            rec, torch.full((height, width), float("inf"), device=dev),
-            torch.full((height, width), -1, dtype=torch.int32, device=dev),
-            width=width, height=height, y_start=y_start)
-        gb_ov = resolve_merge_kernel(
-            gather_stream(table, ov, poison).contiguous(), id_ov,
-            torch.zeros((a, height, width), device=dev), width=width,
-            height=height, y_start=y_start)
-        seeds = (z_ov, id_ov, gb_ov)
-    return fused_kernel(rows, info.bin_start, params, bbox=bbox, width=width,
-                        height=height, chans=chans, has_light=has_light,
-                        has_texture=has_texture, bands=bands,
-                        y_start=y_start, tile_h=tile_h, tile_w=tile_w,
-                        seeds=seeds, perspective=perspective)
+    dev = table.device
+    geo = dict(width=width, height=height, y_start=y_start)
+    ov = overflow_ids(info.overflow_mask, chunk)
+    ov_rows = gather_stream(table, ov, poison).contiguous()
+    z_ov, id_ov = visibility_merge_kernel(
+        raster_records(ov_rows, bbox, ov),
+        torch.full((height, width), float("inf"), device=dev),
+        torch.full((height, width), -1, dtype=torch.int32, device=dev),
+        n_live=info.n_overflow, **geo)
+    gb_ov = resolve_merge_kernel(ov_rows, id_ov, None,
+                                 n_live=info.n_overflow, **geo)
+    return fused_kernel(rows, info.bin_start, params, bbox=bbox,
+                        chans=chans, has_light=has_light,
+                        has_texture=has_texture, bands=bands, tile_h=tile_h,
+                        tile_w=tile_w, seeds=(z_ov, id_ov, gb_ov),
+                        n_overflow=info.n_overflow, perspective=perspective,
+                        **geo)
+
+
+def raster_records(rows, bbox, ids):
+    """Raster records (ops/rasterize_kernel.py layout) of the stream rows
+    ``rows`` of the triangles ``ids`` ([N] int32, -1 for a stream poison
+    row): the rows' edge, |D| and depth columns, the triangle's bbox
+    (``bbox``: [T, 4] int32 by id, :func:`ops.frontend.bbox_table`) and
+    the id. A valid triangle's record equals its row of
+    :func:`ops.frontend.pack_records_planar`; a poison row's covers
+    nothing (c0 = c1 = -1). Six kernels, where packing every triangle's
+    record and gathering takes about twenty."""
+    t = bbox.shape[0]
+    box = torch.nn.functional.pad(bbox.to(torch.float32), (0, 0, 0, 1))
+    box = box[torch.where(ids >= 0, ids, t).long()]
+    return torch.cat([rows[:, :REC_BASE - 1], box,
+                      rows[:, REC_BASE - 1:REC_BASE],
+                      rows.new_zeros((rows.shape[0], 1))], dim=1)
 
 
 def _stream_table(ps, attrs):
@@ -631,9 +729,11 @@ def resolve_plain(rows, bin_start, tid, *, n_channels: int, width: int,
                   tile_w: int = TILE_W, bands: int = 1):
     """Plain version of the resolve kernel: each pixel's winner looked up
     in its own bin's list (one search over (bin, id) keys); its planes
-    where found, 0 elsewhere."""
+    where found, 0 elsewhere. Rows past ``bin_start[-1]`` (the bin
+    build's -1 tail) are not read."""
     dev = rows.device
     nbins, gw = _grid(width, height, tile_h, tile_w, bands)
+    rows = rows[:int(bin_start[-1])]
     counts = (bin_start[1:] - bin_start[:-1]).long()
     row_bin = torch.repeat_interleave(torch.arange(nbins, device=dev), counts)
     row_keys = row_bin * ID_SPAN + rows[:, REC_BASE - 1].long() + 1
@@ -708,9 +808,12 @@ def binned_pipeline(setup, attrs=None, *, width: int,
     past kmax or the pair budget) are merged on top with the lex (depth,
     id) rule by the record kernel. With attributes, the resolve kernel
     evaluates the binned winners' planes and the resolve merge adds the
-    overflow winners'. The JAX package's static fallback for scenes whose
-    packed sort keys overflow int32, and its overflow waves, exist for
-    its key packing and static grid and have no counterpart here.
+    overflow winners'. As in :func:`fused_pipeline`, the merges run on
+    every frame over the static overflow list and stop at the device
+    count (JAX's overflow waves, as one wave whose live count the
+    kernels read: ``n_live``). The JAX package's static fallback for
+    scenes whose packed sort keys overflow int32 exists for its key
+    packing and has no counterpart here.
     """
     ps = fe.as_planar(setup)
     info = build_bins(ps, width=width, height=height, y_start=y_start,
@@ -721,22 +824,20 @@ def binned_pipeline(setup, attrs=None, *, width: int,
     table, a, poison = stream_table
     rows = gather_stream(table, info.ids, poison).contiguous()
     geo = dict(width=width, height=height, y_start=y_start)
-    depth, tri_id = binned_vis_kernel(rows, info.bin_start,
-                                      bbox=fe.bbox_table(ps), tile_h=tile_h,
-                                      tile_w=tile_w, **geo)
-    if info.n_overflow:
-        dev = table.device
-        ov = torch.nonzero(info.overflow_mask).squeeze(1).to(torch.int32)
-        rec = gather_stream(fe.pack_records_planar(ps, chunk), ov,
-                            _poison_row(dev)).contiguous()
-        depth, tri_id = visibility_merge_kernel(rec, depth, tri_id, **geo)
+    bbox = fe.bbox_table(ps)
+    depth, tri_id = binned_vis_kernel(rows, info.bin_start, bbox=bbox,
+                                      tile_h=tile_h, tile_w=tile_w, **geo)
+    ov = overflow_ids(info.overflow_mask, chunk)
+    ov_rows = gather_stream(table, ov, poison).contiguous()
+    depth, tri_id = visibility_merge_kernel(
+        raster_records(ov_rows, bbox, ov), depth, tri_id,
+        n_live=info.n_overflow, **geo)
     if not a:
         return depth, tri_id, None
     gb = resolve_kernel(rows, info.bin_start, tri_id, n_channels=a,
                         tile_h=tile_h, tile_w=tile_w, **geo)
-    if info.n_overflow:
-        ov_rows = gather_stream(table, ov, poison).contiguous()
-        gb = resolve_merge_kernel(ov_rows, tri_id, gb, **geo)
+    gb = resolve_merge_kernel(ov_rows, tri_id, gb, n_live=info.n_overflow,
+                              **geo)
     return depth, tri_id, gb.permute(1, 2, 0)
 
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import constant
 from .vertex import clip_coords
 
 # Corners at clip-space w <= CLIP_EPS cull their triangle. The value is
@@ -84,14 +85,15 @@ def clip_near(clip, eps: float = CLIP_EPS):
     eye = torch.eye(3, dtype=torch.float32, device=dev).expand(t, 3, 3)
     cand_b = torch.cat([eye, torch.stack([e for _, e in cuts], dim=1)],
                        dim=1)                                  # [T, 6, 3]
-    sel = torch.tensor(_QUAD_LUT, device=dev)[case]            # [T, 4]
+    sel = constant(_QUAD_LUT, dev, torch.int64)[case]         # [T, 4]
     quad_p = torch.gather(cand_p, 1, sel[:, :, None].expand(-1, -1, 4))
     quad_b = torch.gather(cand_b, 1, sel[:, :, None].expand(-1, -1, 3))
-    first, second = [0, 1, 2], [0, 2, 3]
-    out_clip = torch.cat([quad_p[:, first], quad_p[:, second]])
-    bary = torch.cat([quad_b[:, first], quad_b[:, second]])
+    # The two triangles of the quad: corners (0, 1, 2) and (0, 2, 3).
+    second = constant((0, 2, 3), dev, torch.int64)
+    out_clip = torch.cat([quad_p[:, :3], quad_p[:, second]])
+    bary = torch.cat([quad_b[:, :3], quad_b[:, second]])
     valid = torch.cat([case != 7,
-                       torch.tensor(_TRI2_VALID, device=dev)[case]])
+                       constant(_TRI2_VALID, dev, torch.bool)[case]])
     return out_clip, bary, valid
 
 

@@ -16,6 +16,7 @@ import dataclasses
 
 import torch
 
+from ..device import constant
 from .clip import CLIP_EPS
 from .rasterize_kernel import pack_records
 from .setup import TriangleSetup, setup_columns
@@ -253,12 +254,10 @@ def attribute_planes(ps: PlanarSetup, vals) -> torch.Tensor:
 
 
 def _stream_poison(n_cols: int, device) -> torch.Tensor:
-    # Slices, so that each write is a fill a CUDA graph can capture.
-    poison = torch.zeros(n_cols, dtype=torch.float32, device=device)
-    poison[4:6] = -1.0           # c0 = c1 = -1: outside everywhere
-    poison[9:10] = float("inf")  # zc = +inf
-    poison[10:11] = -1.0         # id = -1
-    return poison
+    """The poison stream row (c0 = c1 = -1: outside everywhere; zc = +inf;
+    id -1), a shared constant (``device.constant``), read only."""
+    return constant((0.0,) * 4 + (-1.0, -1.0) + (0.0,) * 3
+                    + (float("inf"), -1.0) + (0.0,) * (n_cols - 11), device)
 
 
 def stream_table_planar(ps: PlanarSetup, plane_cols):

@@ -7,7 +7,9 @@ instances of one kernel:
 
 * merge + lex ties (:func:`visibility_merge_kernel`): overflow records
   merged into an existing (z, id) buffer with the lexicographic (depth,
-  id) rule, on the spill frames of ops/binning.py;
+  id) rule, on every frame of ops/binning.py's binned paths, over a
+  static list whose live count (JAX's ``n_live``) the kernels read on
+  the device;
 * clear (:func:`visibility_kernel`, the ``pallas`` backend's
   :func:`visibility_pallas`): every record of the frame into the clear
   buffer, strict ``<`` in ascending id, so the first drawn wins ties.
@@ -38,6 +40,7 @@ import ctypes
 import torch
 
 from .. import _cuda
+from ..device import constant
 from .rasterize_ref import pixel_centers, record_windows
 from .setup import TriangleSetup
 
@@ -55,14 +58,17 @@ PLAIN_BLOCK = 8
 REC_WIDTH = 16
 
 
+# A record that covers nothing and loses every depth test: c0 = c1 = -1
+# (e0, e1 < 0 everywhere), zc = +inf, the empty bbox x0 = y0 = 1 > x1 =
+# y1 = 0, id -1.
+_POISON = (0.0, 0.0, 0.0, 0.0, -1.0, -1.0, 0.0, 0.0, 0.0, float("inf"),
+           1.0, 1.0, 0.0, 0.0, -1.0, 0.0)
+
+
 def _poison_row(device=None) -> torch.Tensor:
-    """A record that covers nothing and loses every depth test."""
-    row = torch.zeros(REC_WIDTH, dtype=torch.float32, device=device)
-    row[4:6] = -1.0          # c0 = c1 = -1 -> e0, e1 < 0 everywhere
-    row[9] = float("inf")    # zc = +inf
-    row[10:12] = 1.0         # empty bbox: x0 = y0 = 1 > x1 = y1 = 0
-    row[14] = -1.0           # id = -1
-    return row
+    """The poison record on ``device`` (the CPU by default): a shared
+    constant (``device.constant``), read only."""
+    return constant(_POISON, "cpu" if device is None else device)
 
 
 def pack_records(setup: TriangleSetup, chunk: int = CHUNK) -> torch.Tensor:
@@ -86,13 +92,20 @@ def pack_records(setup: TriangleSetup, chunk: int = CHUNK) -> torch.Tensor:
     return rec
 
 
+def live_rows(rows, n_live):
+    """The rows before the device count ``n_live`` (all of them when it
+    is None): a plain version's view of a count-aware kernel's input."""
+    return rows if n_live is None else rows[:int(n_live)]
+
+
 def visibility_merge_plain(rec, z_in, id_in, *, width: int, height: int,
-                           y_start: int = 0):
+                           y_start: int = 0, n_live=None):
     """Plain version: lex (depth, id) minimum over the seed and every
-    record that covers a pixel (bbox-clamped edge test), PLAIN_BLOCK
-    records at a time, each block over the window of its records' bboxes
-    (ops/rasterize_ref.py ``record_windows``: no pixel outside it can
-    change)."""
+    record before ``n_live`` that covers a pixel (bbox-clamped edge
+    test), PLAIN_BLOCK records at a time, each block over the window of
+    its records' bboxes (ops/rasterize_ref.py ``record_windows``: no
+    pixel outside it can change)."""
+    rec = live_rows(rec, n_live)
     xs_f, ys_f = pixel_centers(width, height, y_start, rec.device)
     z = z_in.clone()
     ids = id_in.clone()
@@ -125,9 +138,11 @@ def visibility_merge_plain(rec, z_in, id_in, *, width: int, height: int,
 
 
 def card_visibility(lib, rec, z_in=None, id_in=None, *, width: int,
-                    height: int, y_start: int = 0):
+                    height: int, y_start: int = 0, n_live=None):
     """Launch the card kernels of ``lib`` on checked CUDA inputs: the
-    merge mode from (z_in, id_in), or the clear mode when they are None.
+    merge mode from (z_in, id_in) over the records before ``n_live`` (a
+    0-d int32 device tensor, or None for all), or the clear mode when
+    they are None.
     Allocates the scratch the library asks for (per record a span, per
     super-tile an N-entry list and a count per chunk of records). Returns
     (z, id)."""
@@ -148,22 +163,30 @@ def card_visibility(lib, rec, z_in=None, id_in=None, *, width: int,
         _cuda.check(lib.sr_visibility(*head, *tail))
     else:
         _cuda.check(lib.sr_visibility_merge(
-            *head, z_in.data_ptr(), id_in.data_ptr(), *tail))
+            *head, None if n_live is None else n_live.data_ptr(),
+            z_in.data_ptr(), id_in.data_ptr(), *tail))
     return z, ids
 
 
 def visibility_merge_kernel(rec, z_in, id_in, *, width: int, height: int,
-                            y_start: int = 0):
+                            y_start: int = 0, n_live=None):
     """Rasterize raster records ([N, REC_WIDTH] float32, bbox in columns
     10-13, id in column 14, -1 rows inert) into the (z_in [H, W] float32,
     id_in [H, W] int32) buffer with the lex (depth, id) rule.
+
+    n_live: None (every record is live) or a 0-d int32 tensor on the
+    records' device, JAX's ``n_live``: records at or past it are inert,
+    and the span and super-tile passes skip them, so one static list
+    serves every frame and a count of 0 returns the seed (the launches
+    still run: no count reaches the host).
 
     CPU tensors run :func:`visibility_merge_plain`; CUDA tensors launch
     the kernel.
     """
     if rec.device.type == "cpu":
         return visibility_merge_plain(rec, z_in, id_in, width=width,
-                                      height=height, y_start=y_start)
+                                      height=height, y_start=y_start,
+                                      n_live=n_live)
     dev = rec.device
     _cuda.require(rec, torch.float32, "rec", ndim=2, align=16)
     if rec.shape[1] != REC_WIDTH:
@@ -172,10 +195,12 @@ def visibility_merge_kernel(rec, z_in, id_in, *, width: int, height: int,
                   shape=(height, width))
     _cuda.require(id_in, torch.int32, "id_in", device=dev,
                   shape=(height, width))
+    if n_live is not None:
+        _cuda.require(n_live, torch.int32, "n_live", device=dev, shape=())
     lib = _cuda.lib()
     _cuda.launches["visibility_merge"] += 1
     return card_visibility(lib, rec, z_in, id_in, width=width,
-                           height=height, y_start=y_start)
+                           height=height, y_start=y_start, n_live=n_live)
 
 
 def visibility_plain(rec, *, width: int, height: int, y_start: int = 0):

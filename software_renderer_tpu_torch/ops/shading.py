@@ -18,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from ..device import or_default
+from ..device import on_device, or_default
 from ..framebuffer import NO_TRIANGLE
 from .resolve import (barycentrics_at_pixels, interpolate_attribute,
                       perspective_correct_weights)
@@ -103,8 +103,7 @@ def shade_gbuffer(gb, covered, *, shading: str, chans,
         offsets[name] = (off, off + size)
         off += size
     chan = lambda name: gb[..., offsets[name][0]:offsets[name][1]]
-    f = lambda v: torch.as_tensor(v, dtype=torch.float32,
-                                  device=covered.device)
+    f = lambda v: on_device(v, covered.device)
     if shading == "flat" or ("rgb" not in offsets
                              and shading in ("phong", "textured")):
         base = f(flat_color).expand(covered.shape + (3,))
@@ -186,14 +185,16 @@ def shading_params(light: Optional[Light], flat_color=(1.0, 1.0, 1.0),
                    view_dir=(0.0, 0.0, -1.0), device=None) -> torch.Tensor:
     """Pack the per-frame shading constants into one float32 row, on
     ``device``; where it is None, on the device of ``flat_color`` or the
-    light, else the card (device.py)."""
+    light, else the card (device.py). Host values (``view_dir``, a CPU
+    ``flat_color``) reach the card through ``device.constant``: no
+    host-to-card copy per frame."""
     if device is None:
         if isinstance(flat_color, torch.Tensor):
             device = flat_color.device
         elif light is not None:
             device = light.direction.device
     device = or_default(device)
-    f = lambda v: torch.as_tensor(v, dtype=torch.float32, device=device)
+    f = lambda v: on_device(v, device)
     p = torch.zeros(PARAMS_WIDTH, dtype=torch.float32, device=device)
     if light is not None:
         l = -_normalize(f(light.direction))

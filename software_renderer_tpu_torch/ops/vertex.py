@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from ..device import constant
+
 
 def round_half_away(x: torch.Tensor) -> torch.Tensor:
     """``sign(x) * floor(|x| + 0.5)``."""
@@ -41,7 +43,7 @@ def transform_vertices(positions, transform):
 
 def ndc_to_screen(ndc, width: int, height: int) -> torch.Tensor:
     """[N, 3] NDC -> [N, 3] (rounded pixel x, rounded pixel y, NDC z)."""
-    f = lambda v: torch.tensor(v, dtype=torch.float32, device=ndc.device)
+    f = lambda v: constant(v, ndc.device)
     uv = ndc[:, :2] * f([0.5, -0.5]) + 0.5
     pix = round_half_away(uv * f([float(width), float(height)]))
     return torch.cat([pix, ndc[:, 2:3]], dim=-1)

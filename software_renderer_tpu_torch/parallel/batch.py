@@ -1,9 +1,11 @@
 """Frame batching: one scene under a batch of transforms.
 
-Counterpart of the JAX package's parallel/batch.py. JAX vmaps the frame
-function (``render_batch``) or scans groups of vmapped frames
-(``render_batch_chunked``); on one card the port renders the frames one
-after another in both, since a frame's kernels already fill the card.
+Counterpart of the JAX package's parallel/batch.py. JAX vmaps the
+jitted frame function (``render_batch``) or scans groups of vmapped
+frames (``render_batch_chunked``); on one card the port renders the
+frames one after another in both, since a frame's kernels already fill
+the card, and replays one captured frame for each
+(parallel/frame_graph.py, the counterpart of the jit).
 """
 
 from __future__ import annotations
@@ -13,7 +15,8 @@ import dataclasses
 import torch
 
 from ..framebuffer import Framebuffer
-from ..render import RenderPass, render
+from ..render import RenderPass
+from .frame_graph import FrameGraph
 
 
 def _transforms(rp: RenderPass, transforms) -> torch.Tensor:
@@ -30,11 +33,16 @@ def render_batch(rp: RenderPass, transforms, backend: str = "auto"
     Returns color [B, H, W, 4] and depth [B, H, W].
 
     The frames render one after another into the preallocated outputs,
-    so peak memory is the output plus one frame's intermediates."""
+    so peak memory is the output plus one frame's intermediates (on the
+    card, those of the captured frame). On the card the first frame
+    renders eagerly and is captured, and every later one replays it
+    (:class:`parallel.frame_graph.FrameGraph`; eagerly where no graph can
+    hold the frame)."""
     ts = _transforms(rp, transforms)
+    frame = FrameGraph()
     color = depth = None
     for i, t in enumerate(ts):
-        fb = render(dataclasses.replace(rp, transform=t), backend=backend)
+        fb = frame(dataclasses.replace(rp, transform=t), backend=backend)
         if color is None:
             color = fb.color.new_empty((len(ts),) + tuple(fb.color.shape))
             depth = fb.depth.new_empty((len(ts),) + tuple(fb.depth.shape))

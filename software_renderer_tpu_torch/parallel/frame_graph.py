@@ -1,0 +1,169 @@
+"""The compiled frame: ``render`` captured once into a CUDA graph and
+replayed per transform.
+
+Counterpart of the JAX package's ``jax.jit(render)`` (render.py:458),
+which its ``render_batch`` (a jitted ``vmap``) and
+``render_batch_chunked`` (a jitted ``scan``) run. A frame of the port
+makes no host sync and no host-to-card copy (ops/binning.py keeps every
+count on the device), so its ~265 launches can be recorded once and
+replayed as one graph: the host then pays one launch a frame, and the
+device never waits for it.
+
+:class:`FrameGraph` renders the first frame of a pass eagerly (the
+warm-up: kernel library, allocator, device constants), then captures
+``render`` of the same pass with its transform read from a static
+buffer, on the capture's side stream. Every later frame of the same key
+copies its transform into that buffer and replays the graph into the
+graph's static outputs, which the next replay overwrites (callers copy
+them out). The key is the pass's static structure: its shapes and
+flags, the backend, the sampler route and the data pointers of the
+mesh, texture, light, model and flat colour, whose memory the graph
+reads at every replay. A new key means a new capture.
+
+Frames a graph cannot hold run eagerly through ``render``, which still
+runs on the card: an input that requires grad (the autograd graph is
+built per call), the ``"adaptive"`` sampler route (it reads one
+predicate on the host, ops/texture.py), lines and points, the
+``reference``/``pallas`` backends, and CPU tensors. :data:`routes`
+counts every frame by its route.
+
+The kernel wrappers count their launches in Python (``_cuda.launches``),
+and a replay calls no wrapper: the launches a capture records are taken
+back out of the counters and credited again on each replay, so the
+counters hold the launches the device ran.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .. import _cuda
+from ..framebuffer import Framebuffer
+from ..ops import texture
+from ..render import RenderPass, render
+
+# Frames since the last reset_routes(), by route: "capture" rendered
+# eagerly and then captured, "replay" replayed from a graph, "eager"
+# rendered by render() because no graph can hold them.
+routes = {"capture": 0, "replay": 0, "eager": 0}
+
+# Backends whose triangle path a graph holds.
+_BACKENDS = ("auto", "binned")
+# RenderPass fields that hold tensors (:func:`_parts` lists them).
+_TENSORS = ("mesh", "transform", "light", "texture", "model", "flat_color")
+
+
+def reset_routes() -> None:
+    for k in routes:
+        routes[k] = 0
+
+
+def _parts(rp: RenderPass) -> dict:
+    """The pass's tensors (None where absent) and options, by name."""
+    mesh, tex, light = rp.mesh, rp.texture, rp.light
+    parts = {f"mesh.{f.name}": getattr(mesh, f.name)
+             for f in dataclasses.fields(mesh)}
+    if tex is not None:
+        parts.update({"texture.data": tex.data, "texture.table": tex.table,
+                      "texture.texels": tex.texels,
+                      "texture.filter": tex.filter, "texture.wrap": tex.wrap})
+    if light is not None:
+        parts.update({f"light.{f.name}": getattr(light, f.name)
+                      for f in dataclasses.fields(light)})
+    parts.update(model=rp.model, flat_color=rp.flat_color)
+    return parts
+
+
+def capturable(rp: RenderPass, backend: str) -> bool:
+    """Whether a graph can hold ``render(rp, backend)``: triangles on
+    ``auto``/``binned`` on the card, no input that requires grad, and a
+    sampler route other than ``"adaptive"``."""
+    tensors = [t for t in _parts(rp).values()
+               if isinstance(t, torch.Tensor)] + [rp.transform]
+    return (rp.primitive == "triangle" and backend in _BACKENDS
+            and rp.mesh.positions.is_cuda
+            and not any(t.requires_grad for t in tensors)
+            and not (rp.shading == "textured" and rp.texture is not None
+                     and texture.TEX_WINDOWED == "adaptive"))
+
+
+def _key(rp: RenderPass, backend: str) -> tuple:
+    """The static structure of ``render(rp, backend)``: what a capture
+    bakes in. Host tensors (a CPU flat colour) enter by value."""
+    def sig(v):
+        if not isinstance(v, torch.Tensor):
+            return v
+        return (v.data_ptr(), tuple(v.shape), v.dtype, v.device,
+                tuple(v.flatten().tolist()) if v.device.type == "cpu"
+                else None)
+
+    opts = tuple((f.name, getattr(rp, f.name))
+                 for f in dataclasses.fields(rp) if f.name not in _TENSORS)
+    return (backend, texture.TEX_WINDOWED, opts,
+            tuple(rp.transform.shape), rp.transform.dtype,
+            tuple((k, sig(v)) for k, v in sorted(_parts(rp).items())))
+
+
+@dataclasses.dataclass
+class _Capture:
+    graph: "torch.cuda.CUDAGraph"
+    transform: torch.Tensor      # the static [4, 4] buffer the graph reads
+    out: Framebuffer             # the graph's static outputs
+    launches: dict               # kernel launches of one replay
+    rp: RenderPass               # keeps the memory the graph reads alive
+
+
+class FrameGraph:
+    """``render(rp, backend)`` per transform, replayed from one CUDA
+    graph per key (the module docstring). Calling it returns the frame's
+    Framebuffer; on a replay that is the graph's static output, valid
+    until the next call."""
+
+    def __init__(self):
+        self._captures: dict = {}
+
+    def __call__(self, rp: RenderPass, backend: str = "auto") -> Framebuffer:
+        if not capturable(rp, backend):
+            routes["eager"] += 1
+            return render(rp, backend)
+        key = _key(rp, backend)
+        cap = self._captures.get(key)
+        if cap is None:
+            fb = render(rp, backend)
+            self._captures[key] = self._capture(rp, backend)
+            routes["capture"] += 1
+            return fb
+        cap.transform.copy_(rp.transform)
+        cap.graph.replay()
+        for k, n in cap.launches.items():
+            _cuda.launches[k] += n
+        routes["replay"] += 1
+        return cap.out
+
+    @staticmethod
+    def _capture(rp: RenderPass, backend: str) -> _Capture:
+        dev = rp.mesh.positions.device
+        static_t = torch.empty((4, 4), dtype=torch.float32, device=dev)
+        static_t.copy_(rp.transform)
+        crp = dataclasses.replace(rp, transform=static_t)
+        before = dict(_cuda.launches)
+        # capture_begin/end on a side stream, as torch.cuda.graph does,
+        # without its synchronize and empty_cache: freeing the allocator's
+        # cache would cost every later frame its allocations again.
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            graph.capture_begin()
+            try:
+                out = render(crp, backend)
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        # Nothing ran during the capture: its launches count per replay.
+        counted = {k: _cuda.launches[k] - before[k] for k in before}
+        _cuda.launches.update(before)
+        return _Capture(graph, static_t, out,
+                        {k: n for k, n in counted.items() if n}, rp)

@@ -15,12 +15,11 @@ Counterpart of the JAX package's parallel/sharding.py, where
   so every band reads the whole front (JAX's ``all_gather``; here a
   concatenation on each device).
 
-The devices of a mesh run one after another, not at once: one host
-thread drives them, frames one at a time (JAX scans them) and bands one
-after another, and each band's ``render_rows`` waits on its device
-several times (the bin build's host syncs). So a mesh of N cards gives
-the same frame rate as one card; the port has no thread or stream per
-device yet. A device may appear more than once in a mesh: the
+One host thread drives the mesh's devices, frames one at a time (JAX
+scans them) and bands one after another. ``render_rows`` makes no host
+sync, so the thread queues a band's launches on its device and moves on
+to the next band; whether bands on different cards then overlap is not
+measured, and the port has no thread or stream per device. A device may appear more than once in a mesh: the
 counterpart of XLA's virtual host devices, so a mesh of any shape runs
 on one card or on the CPU. The training step sums the per-shard losses
 and gradients where JAX ``psum``s them.
@@ -135,8 +134,8 @@ def render_sharded(rp: RenderPass, transforms, mesh: DeviceMesh,
     and gather it (:func:`sharded_front`) instead of recomputing it per
     band; ignored for ``clip_near`` scenes and a single row shard.
 
-    The mesh's devices run one after another (see the module docstring):
-    more cards do not render faster.
+    One host thread drives the mesh's devices (see the module
+    docstring).
     """
     out_dev = mesh.devices[0][0]
     ts = torch.as_tensor(transforms, dtype=torch.float32, device=out_dev)

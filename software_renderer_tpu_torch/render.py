@@ -29,7 +29,12 @@ a 1/w channel (the front-end kernel's flag on the planar path,
 runs its perspective plan; ``reference``/``pallas`` pass the corners'
 w to ``shade``.
 
-Every tensor follows the device of the RenderPass's tensors.
+Every tensor follows the device of the RenderPass's tensors. On the
+card a triangle frame makes no host sync and copies nothing from the
+host (ops/binning.py keeps every count on the device, host constants
+come from ``device.constant``), except the ``"adaptive"`` sampler's one
+predicate read; parallel/frame_graph.py captures such a frame into a
+CUDA graph.
 
 Gradients: on ``auto``/``binned`` the geometry stage (either front-end,
 bins, fused kernel) sits in one autograd region whose backward warns and

@@ -13,8 +13,8 @@ At config 4's full size (1920x1080, 99,936 triangles) it reports:
 * for chip_smoke.py's 8 main-path frames under ``SR_TEX_WINDOWED`` "0"
   and "1": device ms, device kernels, and copies and memsets per frame
   (one torch.profiler run of the 8 frames after a warm-up frame), and
-  each frame's wall ms (CUDA events around render(), which ends in host
-  syncs);
+  each frame's wall ms (CUDA events around render(), with a synchronize
+  after each frame);
 * by CUDA-graph replay at frame 0: the front-end kernel alone (its 24
   rows) and the windowed sampler K7 on its inputs (on planar tables where
   that tree's sampler takes them);

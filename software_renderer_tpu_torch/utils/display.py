@@ -8,9 +8,11 @@ on its device and copied into one of two pinned host buffers without
 blocking, and a CUDA event recorded after the copy is what the loop
 waits for before it encodes the frame.
 
-``render`` itself waits on the device a few times a frame (the bin build
-reads counts on the host), so how much of the sink the device hides is a
-measurement (``chip_smoke.py`` phase 13), not a given.
+Given a ``transform_fn``, the loop replays one captured frame per
+transform (parallel/frame_graph.py), as JAX runs its jitted ``render``;
+``render`` makes no host sync either way, so the host queues frame N
+while the device still renders frame N-1, and how much of the sink the
+device hides is a measurement (``chip_smoke.py`` phase 13), not a given.
 """
 
 from __future__ import annotations
@@ -23,7 +25,9 @@ from typing import Callable, Optional
 import torch
 
 from ..framebuffer import to_rgba8
+from ..framebuffer import Framebuffer
 from ..ops.msaa import render_msaa
+from ..parallel.frame_graph import FrameGraph
 from ..render import RenderPass, render
 from .config import RenderConfig
 from .device import block_on
@@ -38,7 +42,8 @@ class FrameLoop:
 
     scene_fn is called once to build the scene; per frame only the
     transform changes (through transform_fn(time)) when one is given,
-    else scene_fn builds each frame.
+    and the frames replay one captured frame (without supersampling;
+    parallel/frame_graph.py), else scene_fn builds each frame, eagerly.
     """
 
     def __init__(self, scene_fn: Callable[[float], RenderPass],
@@ -50,9 +55,12 @@ class FrameLoop:
         self._transform_fn = transform_fn
         self._scene_fn = scene_fn
         self._pinned = [None, None]
+        self._graph = FrameGraph()
 
     def frame(self):
-        """Render one frame and advance time by the config's time step."""
+        """Render one frame and advance time by the config's time step.
+        The framebuffer is the caller's: a replayed frame is copied out
+        of the graph's outputs."""
         if self._transform_fn is not None:
             rp = dataclasses.replace(self._rp,
                                      transform=self._transform_fn(self.time))
@@ -61,6 +69,9 @@ class FrameLoop:
         if self.config.msaa > 1:
             fb = render_msaa(rp, samples=self.config.msaa,
                              backend=self.config.backend)
+        elif self._transform_fn is not None:
+            fb = self._graph(rp, backend=self.config.backend)
+            fb = Framebuffer(color=fb.color.clone(), depth=fb.depth.clone())
         else:
             fb = render(rp, backend=self.config.backend)
         self.time += self.config.time_step

@@ -133,9 +133,9 @@ def test_build_bins_matches_jax(c4, bands, budget):
     info_t = tbin.build_bins(ps_t, **kw)
     np.testing.assert_array_equal(np.asarray(info_j.overflow_mask),
                                   info_t.overflow_mask.numpy())
-    assert info_t.n_overflow == int(info_j.n_overflow)
+    assert int(info_t.n_overflow) == int(info_j.n_overflow)
     if budget < 0.5:
-        assert info_t.n_overflow > 0, "budget did not spill; vacuous"
+        assert int(info_t.n_overflow) > 0, "budget did not spill; vacuous"
     lists_t = _torch_bin_lists(info_t)
     assert lists_t == _jax_bin_lists(info_j, bands)
     assert all(np.all(np.diff(v) > 0) for v in lists_t.values())
@@ -181,7 +181,7 @@ def test_fused_all_spill_equals_binned(c4, which):
     bands = 4 if ps_t.num_triangles >= 2048 else 1
     info = tbin.build_bins(ps_t, width=rp.width, height=rp.height, kmax=1,
                            bands=bands)
-    assert info.n_overflow > 0
+    assert int(info.n_overflow) > 0
     d1, i1, o1 = _run_port(ps_t, attrs_t, prm_t, rp, chans, hl, kmax=1)
     np.testing.assert_array_equal(i0.numpy(), i1.numpy())
     np.testing.assert_array_equal(d0.numpy(), d1.numpy())

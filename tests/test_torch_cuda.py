@@ -294,7 +294,7 @@ def _walk_inputs(case, bands, dev="cuda"):
     if case == "one_warp":
         assert int(counts.max()) == int(counts.sum()) >= 256
     if case == "none":
-        assert rows.shape[0] == 0
+        assert int(info.bin_start[-1]) == 0
     geo = dict(width=_WALK_W, height=h, y_start=y0, bands=bands)
     return rows, info.bin_start, fe.bbox_table(ps), a, geo, ps
 
@@ -1298,3 +1298,219 @@ def test_texture_train_step_over_a_mesh_on_card(monkeypatch):
     assert float((new - tex0).abs().max()) > 1e-3
     assert abs(float(loss_m) - float(loss)) <= 1e-5 * float(loss)
     assert float((new_m - new).abs().max()) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The compiled frame: no host sync in a frame, the kernels' device counts,
+# and render_batch / FrameLoop replaying one captured frame.
+# ---------------------------------------------------------------------------
+
+def _render_bins(rp):
+    """The bins render() builds for a triangle RenderPass on the main
+    path (bands, kmax and pair budget as ops/binning.py and render.py
+    choose them)."""
+    ps = triangle_inputs(rp)[0]
+    bands = (tb.FUSED_BANDS if ps.num_triangles >= tb.FUSED_BANDS_MIN_T
+             else 1)
+    return tb.build_bins(ps, width=rp.width, height=rp.height,
+                         kmax=tb.KMAX * bands, bands=bands,
+                         pair_budget_factor=0.85 if rp.cull_backfaces
+                         else 3.0)
+
+
+def _sync_free(fn):
+    """``fn()`` after a warm-up, under sync debug mode "error" (a host
+    sync raises)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("mode", ["0", "1"])
+@pytest.mark.parametrize("name", ["config4", "config2_kmax1"])
+def test_render_makes_no_host_sync(name, mode, monkeypatch):
+    """render() of a spill-free frame (config 4 cut down) and of a frame
+    whose multi-bin triangles all spill (config 2 with kmax 1), with
+    either sampler route, syncs nothing with the host; the frames equal
+    the CPU's."""
+    monkeypatch.setattr(ttex, "TEX_WINDOWED", mode)
+    if name == "config2_kmax1":
+        monkeypatch.setattr(tb, "KMAX", 1)
+        rp = scenes.config2_textured_cube(0.7, width=256, height=192,
+                                          device="cpu")
+    else:
+        rp = scenes.config4_many_objects(0.0, width=384, height=192,
+                                         triangles=3000, device="cpu")
+    card = rp.to("cuda")
+    n_ov = int(_render_bins(card).n_overflow)
+    assert (n_ov > 0) == (name == "config2_kmax1"), n_ov
+    fb_g = _sync_free(lambda: render(card))
+    torch.cuda.synchronize()
+    _card_equals_cpu(render(rp), fb_g, f"{name} mode {mode}")
+
+
+@pytest.mark.parametrize("bands", [1, 4])
+def test_count_kernels_match_plain(bands):
+    """K2, K3 and K4 with the device count, against their plain versions
+    with the same count: at 0 (K2 the static walk bit for bit, reading no
+    seed; K3 and K4 their seeds unchanged) and above 0 (the kmax=1 spill
+    over the static overflow list, equal to the compact list's run)."""
+    rp = scenes.config4_many_objects(0.0, width=320, height=192,
+                                     triangles=3000, device="cuda")
+    ps, chans, attrs, prm, _, _ = triangle_inputs(rp)
+    w, h = rp.width, rp.height
+    table, a, poison = fe.stream_table_planar(
+        ps, fe.attribute_plane_cols(ps, attrs))
+    bbox = fe.bbox_table(ps)
+    kw = dict(width=w, height=h, chans=chans, has_light=True,
+              has_texture=True, bands=bands, bbox=bbox)
+    junk = (torch.full((h, w), -5.0, device="cuda"),
+            torch.full((h, w), 7, dtype=torch.int32, device="cuda"),
+            torch.full((a, h, w), 3.0, device="cuda"))
+    zero = torch.zeros((), dtype=torch.int32, device="cuda")
+    info0 = tb.build_bins(ps, width=w, height=h, kmax=12 * bands,
+                          bands=bands)
+    assert int(info0.n_overflow) == 0
+    rows0 = tb.gather_stream(table, info0.ids, poison).contiguous()
+    static = tb.fused_kernel(rows0, info0.bin_start, prm, **kw)
+    for fn in (tb.fused_kernel, tb.fused_plain):
+        got = fn(rows0, info0.bin_start, prm, seeds=junk,
+                 n_overflow=info0.n_overflow, **kw)
+        torch.cuda.synchronize()
+        assert all(_equal(g, s) for g, s in zip(got, static)), fn.__name__
+
+    info = tb.build_bins(ps, width=w, height=h, kmax=1, bands=bands)
+    n = info.n_overflow
+    assert int(n) > 0
+    ov = tb.overflow_ids(info.overflow_mask)
+    ov_rows = tb.gather_stream(table, ov, poison).contiguous()
+    rec = tb.raster_records(ov_rows, bbox, ov)
+    z0 = torch.full((h, w), float("inf"), device="cuda")
+    i0 = torch.full((h, w), -1, dtype=torch.int32, device="cuda")
+    zk, ik = visibility_merge_kernel(rec, z0, i0, width=w, height=h,
+                                     n_live=n)
+    zp, ip = visibility_merge_plain(rec, z0, i0, width=w, height=h,
+                                    n_live=n)
+    rec_c = rec[:int(n)].contiguous()
+    zc, ic = visibility_merge_kernel(rec_c, z0, i0, width=w, height=h)
+    z_0, i_0 = visibility_merge_kernel(rec, junk[0], junk[1], width=w,
+                                       height=h, n_live=zero)
+    torch.cuda.synchronize()
+    assert _equal(ik, ip) and _equal(zk, zp) and bool((ik >= 0).any())
+    assert _equal(ik, ic) and _equal(zk, zc)
+    assert _equal(z_0, junk[0]) and _equal(i_0, junk[1])
+    # With no seed K4 defines the overflow winners' pixels only (all that
+    # K2 reads of its seed planes).
+    gk = tb.resolve_merge_kernel(ov_rows, ik, None, width=w, height=h,
+                                 n_live=n)
+    gp = tb.resolve_merge_plain(ov_rows, ik, None, width=w, height=h,
+                                n_live=n)
+    g_0 = tb.resolve_merge_kernel(ov_rows, ik, junk[2], width=w, height=h,
+                                  n_live=zero)
+    g_s = tb.resolve_merge_kernel(ov_rows, ik, junk[2], width=w, height=h,
+                                  n_live=n)
+    torch.cuda.synchronize()
+    won = ik >= 0
+    assert float((gk - gp)[:, won].abs().max()) <= PLANE_TOL
+    assert _equal(g_s[:, won], gk[:, won]) and _equal(g_s[:, ~won],
+                                                      junk[2][:, ~won])
+    assert _equal(g_0, junk[2])
+    rows = tb.gather_stream(table, info.ids, poison).contiguous()
+    seeded = dict(seeds=(zk, ik, gk), n_overflow=n, **kw)
+    zs, is_, os_ = tb.fused_kernel(rows, info.bin_start, prm, **seeded)
+    zsp, isp, osp = tb.fused_plain(rows, info.bin_start, prm, **seeded)
+    torch.cuda.synchronize()
+    assert _equal(is_, isp) and _equal(zs, zsp)
+    assert float((os_ - osp).abs().max()) <= PLANE_TOL
+    assert _equal(is_, static[1]) and _equal(zs, static[0])
+
+
+def _spill_transforms(rp):
+    """Transforms of ``rp``: first one that moves the scene off the
+    screen (nothing drawn, nothing spilled), then bench.py's rotation at
+    three times, on which config 4's multi-bin triangles spill (with
+    KMAX patched to a quarter: kmax 1 over 4 bands)."""
+    off = tf.translation_matrix((5.0, 0.0, 0.0), device="cuda")
+    axis = tf.normalize(torch.tensor([1.0, 1.0, 0.0], device="cuda"))
+    rot = [tf.rotation_matrix(tf.quat_from_axis_angle(
+        axis, torch.tensor(t, device="cuda"))) for t in (0.0, 1.0, 2.0)]
+    return torch.stack([rp.transform @ off] + [rp.transform @ r
+                                               for r in rot])
+
+
+@pytest.mark.parametrize("mode", ["0", "1"])
+def test_frame_graph_replays_spill_frames(mode, monkeypatch):
+    """render_batch captures a frame with no spill and replays it on
+    frames that spill: every frame equals its eager render bit for bit,
+    the routes are one capture and the rest replays, and the launch
+    counters advance on each replay as the eager frames' do."""
+    from software_renderer_tpu_torch.parallel import frame_graph as fg
+    monkeypatch.setattr(ttex, "TEX_WINDOWED", mode)
+    monkeypatch.setattr(tb, "KMAX", 0.25)
+    rp = scenes.config4_many_objects(0.0, width=384, height=192,
+                                     triangles=3000, device="cuda")
+    ts = _spill_transforms(rp)
+    spills = [int(_render_bins(dataclasses.replace(rp, transform=t))
+                  .n_overflow) for t in ts]
+    assert spills[0] == 0 and all(n > 0 for n in spills[1:]), spills
+    render(rp)
+    _cuda.reset_launches()
+    eager = [render(dataclasses.replace(rp, transform=t)) for t in ts]
+    torch.cuda.synchronize()
+    want = dict(_cuda.launches)
+    _cuda.reset_launches()
+    fg.reset_routes()
+    got = render_batch(rp, ts)
+    torch.cuda.synchronize()
+    assert fg.routes == {"capture": 1, "replay": len(ts) - 1, "eager": 0}
+    assert dict(_cuda.launches) == want
+    for i, e in enumerate(eager):
+        assert _equal(got.color[i], e.color), i
+        assert _equal(got.depth[i], e.depth), i
+    # One more replay through a FrameGraph adds one frame's launches.
+    graph = fg.FrameGraph()
+    graph(dataclasses.replace(rp, transform=ts[0]))
+    before = dict(_cuda.launches)
+    fb = graph(dataclasses.replace(rp, transform=ts[2]))
+    torch.cuda.synchronize()
+    assert _equal(fb.color, eager[2].color)
+    assert _cuda.launches["fe"] == before["fe"] + 1
+    assert _cuda.launches["fused"] == before["fused"] + 1
+    assert _cuda.launches["visibility_merge"] == \
+        before["visibility_merge"] + 1
+
+
+def test_frame_graph_eager_routes_are_counted():
+    """A texture that requires grad and the "adaptive" sampler render
+    eagerly, counted; FrameLoop with a transform_fn replays, and its
+    frames are its own (a later frame does not overwrite them)."""
+    from software_renderer_tpu_torch.parallel import frame_graph as fg
+    from software_renderer_tpu_torch.utils.config import RenderConfig
+    from software_renderer_tpu_torch.utils.display import FrameLoop
+    rp = _config4_loop_scene(0.0)
+    ts = torch.stack([_config4_loop_scene(t).transform
+                      for t in (0.0, 0.5)])
+    tex = dataclasses.replace(rp.texture, data=rp.texture.data.clone()
+                              .requires_grad_(True))
+    fg.reset_routes()
+    render_batch(dataclasses.replace(rp, texture=tex), ts)
+    saved = ttex.TEX_WINDOWED
+    ttex.TEX_WINDOWED = "adaptive"
+    try:
+        render_batch(rp, ts)
+    finally:
+        ttex.TEX_WINDOWED = saved
+    assert fg.routes == {"capture": 0, "replay": 0, "eager": 4}
+    fg.reset_routes()
+    loop = FrameLoop(lambda t: rp, lambda t: _config4_loop_scene(t).transform,
+                     RenderConfig(width=256, height=192, time_step=0.5))
+    frames = [loop.frame() for _ in range(3)]
+    torch.cuda.synchronize()
+    assert fg.routes == {"capture": 1, "replay": 2, "eager": 0}
+    for i, fb in enumerate(frames):
+        want = render(_config4_loop_scene(0.5 * i))
+        assert _equal(fb.color, want.color) and _equal(fb.depth, want.depth)

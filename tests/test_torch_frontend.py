@@ -221,7 +221,8 @@ def test_import_leaves_jax_out():
         " 'ops.primitives2d', 'ops.msaa', 'ops.resize', 'utils.config',"
         " 'models.teapot', 'runtime', 'utils.log', 'utils.image_io',"
         " 'utils.checkpoint', 'utils.device', 'utils.timing',"
-        " 'utils.profiling', 'utils.present', 'utils.display'):\n"
+        " 'utils.profiling', 'utils.present', 'utils.display',"
+        " 'parallel.frame_graph'):\n"
         "    assert p.__name__ + '.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'software_renderer_tpu'"

@@ -185,6 +185,32 @@ def test_render_batch_takes_a_numpy_stack():
     assert ref.color[..., 3].any()
 
 
+def test_frame_graph_key_and_cpu_route(monkeypatch):
+    """The compiled frame's bookkeeping on the CPU: render_batch renders
+    CPU frames eagerly and counts them; the capture key ignores the
+    transform and changes with what a capture bakes in (the mesh's
+    memory, the options, the sampler route, the backend)."""
+    from software_renderer_tpu_torch.parallel import frame_graph as fg
+    rp = _port_of(_jax_sphere())
+    ts = torch.from_numpy(_transforms(3))
+    fg.reset_routes()
+    render_batch(rp, ts)
+    assert fg.routes == {"capture": 0, "replay": 0, "eager": 3}
+    assert not fg.capturable(rp, "auto")
+    key = fg._key(rp, "auto")
+    assert fg._key(dataclasses.replace(rp, transform=ts[1]), "auto") == key
+    other_mesh = dataclasses.replace(rp.mesh, positions=rp.mesh.positions
+                                     .clone())
+    for changed in (dataclasses.replace(rp, mesh=other_mesh),
+                    dataclasses.replace(rp, width=rp.width + 8),
+                    dataclasses.replace(rp, cull_backfaces=True),
+                    dataclasses.replace(rp, flat_color=torch.zeros(3))):
+        assert fg._key(changed, "auto") != key
+    assert fg._key(rp, "binned") != key
+    monkeypatch.setattr(ttex, "TEX_WINDOWED", "1")
+    assert fg._key(rp, "auto") != key
+
+
 def test_texture_train_step_over_a_mesh_equals_meshless():
     """JAX's argument order (tex, rp, transforms, targets, mesh, lr=...):
     a 2 x 1 mesh of CPU devices gives the meshless step bit for bit, and
