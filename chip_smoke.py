@@ -32,7 +32,10 @@ the script exits non-zero without printing a result:
    it and read just after; ms/frame of each (CUDA events; device
    ms/frame from a profile); (depth, id) bit-equal across
    the record walk (K3'), the binned pass (K5, K3 on spills) and the fused
-   path (K2);
+   path (K2); on the frame with the most spills, binned_pipeline's
+   G-buffer bit-equal to K6's planes with the plain K4 applied on the
+   inputs of the pipeline's own K4 call, and K4 timed on them in place
+   against the out-of-place form;
 8. the texture tail's routes: the 8 main-path frames through render()
    under SR_TEX_WINDOWED "0", "1" and "adaptive" (counters reset per
    mode); in "1" the windowed sampler (K7) launches once per frame and
@@ -134,9 +137,18 @@ previous design's (EARLIER_MS).
 
 Each kernel's bound is the larger of the bytes it must move over the
 card's memory rate and the float32 operations this run's data needs over
-the card's float32 rate (NVIDIA's H100 SXM data sheet, at 700 W). The
-last lines are the card line, one JSON line describing the kernels, and
-{"ok": true, "device": {...}}. Imports nothing of JAX.
+the card's float32 rate (NVIDIA's H100 SXM data sheet, at 700 W); its
+least time (``least_ms``) also counts the launch floor, a one-element
+torch add by CUDA-graph replay measured before phase 3 builds any
+kernel's inputs. K4's bound counts what the function moves: every
+pixel's id, and per live winner its slot and its plane writes, and the
+winning rows' planes; at a count of 0 it moves nothing, so its least
+time is the launch floor. Phase 3 times K4 on the kmax=1 spill, at a
+count of 0 and at 9 channels on the camera spill; phase 7 holds
+binned_pipeline's G-buffer against K6's planes with the plain K4 applied
+on the inputs of the pipeline's own K4 call, and times K4 on them in
+place against the out-of-place form. The last lines are the card line, one JSON line describing the
+kernels, and {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 import dataclasses
@@ -223,13 +235,17 @@ BUDGET = 0.85
 # that tested every record of a bin on every pixel of its slab (K2 static,
 # K5), the front-end that wrote the 24 rows alone, one 256-thread block
 # per 256 triangles (K1, by graph replay, tools/profile_frames.py), and
-# the sampler that ran one thread per lane on planar tables (K7). Printed
-# beside this run's times in phase 3, never in the kernels line; K1's
-# earlier_ms is the previous design's whole front-end as this run times
-# it (the rows, then the torch planes and stream table).
+# the sampler that ran one thread per lane on planar tables (K7), and the
+# overflow resolve that binary-searched each pixel's id among the rows'
+# ids on a grid of one thread per pixel (K4: the kmax=1 spill, a count of
+# 0, the camera spill at 9 channels). Printed beside this run's times in
+# phase 3, never in the kernels line; K1's earlier_ms is the previous
+# design's whole front-end as this run times it (the rows, then the torch
+# planes and stream table).
 EARLIER_MS = {"visibility_merge": 10.59, "visibility": 69.68,
               "window_lookup": 0.0175, "fused": 0.460, "binned_vis": 0.818,
-              "fe": 0.00593, "sampler": 0.0241}
+              "fe": 0.00593, "sampler": 0.0241, "resolve_merge": 0.0142,
+              "resolve_merge_count0": 0.0061, "resolve_merge_camera": 0.0104}
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, 700 W): float32
 # outside the tensor cores, and HBM3.
@@ -320,15 +336,34 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+# The least time of any launch on this card: a one-element torch add by
+# CUDA-graph replay, measured by measure_launch_floor before phase 3
+# builds any kernel's inputs.
+launch_floor_ms = None
+
+
+def measure_launch_floor(dev):
+    global launch_floor_ms
+    one = torch.zeros(1, device=dev)
+    launch_floor_ms = graph_ms(lambda: one.add_(1.0), 200)
+    print(f"launch floor (one-element torch add, CUDA-graph replay): "
+          f"{launch_floor_ms} ms", flush=True)
+
+
 def bound(n_bytes, n_ops, library_ms=None):
     """The least time (ms) the card could take to move ``n_bytes`` and do
     ``n_ops`` float32 operations, which of the two bounds it, and the
     time of one PyTorch call computing the same function (None where no
-    one call does, as for K1-K6)."""
+    one call does, as for K1-K6). ``least_ms`` also counts the launch
+    floor, the third term below which no launch goes (``least_by``
+    "launch" where it dominates)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_OPS_PER_S * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    ms = max(t_bytes, t_ops)
+    return dict(bound_ms=ms, bound_by=by,
+                least_ms=max(ms, launch_floor_ms),
+                least_by=by if ms >= launch_floor_ms else "launch",
                 library_ms=library_ms)
 
 
@@ -347,6 +382,21 @@ def resolve_bytes(rows, n_won, n_channels, *ts):
     tensors ``ts`` (read or written once)."""
     return (nbytes(rows[:, tb.REC_BASE - 1], *ts)
             + n_won * 3 * n_channels * 4)
+
+
+def resolve_merge_work(tid, slots, n_live, n_channels):
+    """(bytes, operations) K4 must handle on this data: every pixel's id;
+    per live winner (a pixel whose id's slot is below the count) its
+    slot (4 bytes: ids travel as float32, so below 2^24) and its A plane
+    writes, 4 operations a plane; and the planes of each distinct winning
+    row. Returns the live winners' count too."""
+    q = tid.long()
+    won = (q >= 0) & (slots[q.clamp(min=0)] < n_live)
+    n_won = int(won.sum())
+    n_rows = torch.unique(q[won]).numel()
+    n_bytes = (nbytes(tid) + n_won * (4 + 4 * n_channels)
+               + n_rows * 3 * n_channels * 4)
+    return n_bytes, 4 * n_channels * n_won, n_won
 
 
 def sampler_work(tabs, prep, out):
@@ -511,7 +561,7 @@ def phase_kernels(dev):
                           pair_budget_factor=0.85, bands=4)
     n1 = info1.n_overflow
     n_ov = int(n1)
-    ov = tb.overflow_ids(info1.overflow_mask)
+    ov, slots = tb.overflow_ids(info1.overflow_mask)
     ov_rows = tb.gather_stream(table, ov, poison).contiguous()
     rec = tb.raster_records(ov_rows, bbox, ov)
     z0 = torch.full((h, w), float("inf"), device=dev)
@@ -549,36 +599,57 @@ def phase_kernels(dev):
                 OPS_TEST_CLAMPED * bbox_pixels(rec[:n_ov, 10:14], w, h)))
 
     # With no seed K4 defines the overflow winners' pixels only (all
-    # that K2 reads of its seed planes).
-    k4 = dict(width=w, height=h, n_live=n1)
+    # that K2 reads of its seed planes); the main path passes the slot map
+    # of the static list.
+    k4 = dict(width=w, height=h, n_live=n1, slots=slots)
     won = i3 >= 0
     g4 = tb.resolve_merge_kernel(ov_rows, i3, None, **k4)
     g4p = tb.resolve_merge_plain(ov_rows, i3, None, **k4)
     g4s = tb.resolve_merge_kernel(ov_rows, i3, torch.zeros_like(g4), **k4)
     g4sp = tb.resolve_merge_plain(ov_rows, i3, torch.zeros_like(g4), **k4)
     g40 = tb.resolve_merge_kernel(ov_rows, i3, junk[2], width=w, height=h,
-                                  n_live=zero)
+                                  n_live=zero, slots=slots)
+    g40i = junk[2].clone()
+    tb.resolve_merge_kernel(ov_rows, i3, g40i, width=w, height=h,
+                            n_live=zero, slots=slots, inplace=True)
     sync()
     err4 = max(max_err(g4[:, won], g4p[:, won]), max_err(g4s, g4sp))
     assert err4 <= PLANE_TOL, f"K4 planes differ by {err4}"
     assert_bit_equal(g4s[:, won], g4[:, won], "K4 with a zero seed vs none")
     assert_bit_equal(g40, junk[2], "K4 with the count at 0")
+    assert_bit_equal(g40i, junk[2], "K4 in place with the count at 0")
+    k4_bytes, k4_ops, k4_won = resolve_merge_work(i3, slots, n_ov, a)
+    assert k4_won == int(won.sum())
     res["resolve_merge"] = dict(
         max_abs_err=err4,
+        bit_equal=bool(((g4 == g4p)[:, won]).all() and (g4s == g4sp).all()),
         ms=graph_ms(lambda: tb.resolve_merge_kernel(ov_rows, i3, None,
-                                                    **k4), 20),
+                                                    **k4), 50),
         count0_ms=graph_ms(lambda: tb.resolve_merge_kernel(
-            ov_rows, i3, None, width=w, height=h, n_live=zero), 20),
+            ov_rows, i3, None, width=w, height=h, n_live=zero,
+            slots=slots), 50),
+        seed_ms=graph_ms(lambda: tb.resolve_merge_kernel(
+            ov_rows, i3, g4s, **k4), 50),
         launch_loop_ms=cuda_ms(lambda: tb.resolve_merge_kernel(
             ov_rows, i3, None, **k4), 20),
         plain_ms=cuda_ms(lambda: tb.resolve_merge_plain(
             ov_rows, i3, None, **k4), 5),
-        shape=f"{n_ov} overflow rows of a {ov_rows.shape[0]}-row list",
-        # With no seed it writes the overflow winners' pixels only.
-        **bound(resolve_bytes(ov_rows[:n_ov],
-                              torch.unique(i3[won]).numel(), a, i3)
-                + int(won.sum()) * a * 4,
-                int(won.sum()) * (4 * a + math.ceil(math.log2(n_ov + 1)))))
+        shape=f"{n_ov} overflow rows of a {ov_rows.shape[0]}-row list, "
+              f"{k4_won} winner pixels",
+        **bound(k4_bytes, k4_ops))
+    r4 = res["resolve_merge"]
+    r4["count0_earlier_ms"] = EARLIER_MS["resolve_merge_count0"]
+    # At a count of 0 with no seed the function moves nothing: its least
+    # time is the launch floor.
+    r4["count0_least_ms"] = bound(0, 0)["least_ms"]
+    r4["count0_vs_floor"] = r4["count0_ms"] / launch_floor_ms
+    r4["share_of_bound"] = r4["least_ms"] / r4["ms"]
+    print(f"K4 (kmax=1 spill, no seed): {r4['ms']} ms (earlier "
+          f"{EARLIER_MS['resolve_merge']}), bound {r4['bound_ms']} "
+          f"({r4['bound_by']}), {r4['share_of_bound']} of it; count 0 "
+          f"{r4['count0_ms']} ms (earlier {r4['count0_earlier_ms']}), "
+          f"{r4['count0_vs_floor']} x the launch floor; seed out of place "
+          f"{r4['seed_ms']} ms; bit-equal {r4['bit_equal']}", flush=True)
 
     rows1 = tb.gather_stream(table, info1.ids, poison).contiguous()
     seeds = (z3, i3, g4)
@@ -877,7 +948,62 @@ def phase_backends(dev, card):
             assert_bit_equal(d, d3, f"frame {i}: {what} vs pallas depth")
         print(f"frame {i}: (depth, id) equal across K3', K5 + K3 and K2; "
               f"coverage {float((i3 >= 0).float().mean())}", flush=True)
-    return launches, ms
+    return launches, ms, binned_pipeline_k4(passes, w, h)
+
+
+def binned_pipeline_k4(passes, w, h):
+    """K4 as binned_pipeline launches it, on its own inputs: the pipeline
+    runs on each frame of ``passes`` (and with kmax=1 on the first frame
+    if none spills) with its K4 call recorded; on the frame with the most
+    spills its G-buffer must equal K6's planes with the plain K4 applied
+    in place on the recorded inputs, bit for bit, and K4 is timed in
+    place on them against the out-of-place form (the wrapper's clone of
+    the seed, then the same launch)."""
+    calls = []
+    kernel = tb.resolve_merge_kernel
+
+    def record(rows, tid, gb_in, **kw):
+        calls.append((rows, tid, gb_in.clone(), kw))
+        return kernel(rows, tid, gb_in, **kw)
+
+    def run(p, kmax=tb.KMAX):
+        ps, _, attrs, _, _, _ = triangle_inputs(p)
+        calls.clear()
+        tb.resolve_merge_kernel = record
+        try:
+            out = tb.binned_pipeline(ps, attrs, width=w, height=h, kmax=kmax,
+                                     pair_budget_factor=BUDGET)
+        finally:
+            tb.resolve_merge_kernel = kernel
+        (call,) = calls
+        return int(call[3]["n_live"]), kmax, out, call
+
+    n_ov, kmax, out, call = max((run(p) for p in passes),
+                                key=lambda f: f[0])
+    if n_ov == 0:
+        n_ov, kmax, out, call = run(passes[0], kmax=1)
+    assert n_ov > 0, "no binned_pipeline frame spills"
+    ov_rows, tid, g6, k4 = call
+    assert k4.pop("inplace"), "binned_pipeline's K4 copies its seed"
+    a = g6.shape[0]
+    gp = tb.resolve_merge_plain(ov_rows, tid, g6.clone(), inplace=True,
+                                **k4)
+    gk = out[2].permute(2, 0, 1)
+    sync()
+    assert_bit_equal(gk, gp, "binned_pipeline's G-buffer vs K6 + plain K4")
+    n_bytes, n_ops, n_won = resolve_merge_work(tid, k4["slots"], n_ov, a)
+    buf = g6.clone()
+    r = dict(
+        max_abs_err=max_err(gk, gp),
+        inplace_ms=graph_ms(lambda: tb.resolve_merge_kernel(
+            ov_rows, tid, buf, inplace=True, **k4), 50),
+        seed_copy_ms=graph_ms(lambda: tb.resolve_merge_kernel(
+            ov_rows, tid, g6, **k4), 50),
+        shape=f"{n_ov} overflow rows (kmax {kmax}), {n_won} winner "
+              f"pixels, {int((tid >= 0).sum())} covered, {a} channels",
+        **bound(n_bytes, n_ops))
+    print(f"K4 in binned_pipeline (in place): {json.dumps(r)}", flush=True)
+    return r
 
 
 def frame0_uv(dev):
@@ -1008,13 +1134,11 @@ def phase_texture_kernels(dev):
               f"{probe.TABLE}x{probe.TABLE} table",
         **bound(nbytes(tab, y0, ty, tx, lk), 0, library_ms=plain_wl))
     res["window_lookup"]["earlier_ms"] = EARLIER_MS["window_lookup"]
-    # The floor under K8's shape_probe: one launch of a one-element torch
-    # op, by the same graph replay.
-    one = torch.zeros(1, device=dev)
-    floor_ms = graph_ms(lambda: one.add_(1.0), 200)
-    print(f"launch floor (one-element torch add, CUDA-graph replay): "
-          f"{floor_ms} ms; K8 take_along_axis {res['take_along_axis']['ms']}"
-          f" ms, {res['take_along_axis']['ms'] / floor_ms} x the floor",
+    # K8's shape_probe moves less than a launch costs: its least time is
+    # the launch floor.
+    print(f"launch floor {launch_floor_ms} ms; K8 take_along_axis "
+          f"{res['take_along_axis']['ms']} ms, "
+          f"{res['take_along_axis']['ms'] / launch_floor_ms} x the floor",
           flush=True)
     for name in ("sampler", "take_along_axis", "window_lookup"):
         print(f"  {name}: {json.dumps(res[name])}", flush=True)
@@ -1273,18 +1397,25 @@ def phase_camera_kernels(dev):
     # seeded plan.
     n_ov = int(info.n_overflow)
     assert n_ov > 0, "the camera frame does not spill"
-    ov = tb.overflow_ids(info.overflow_mask)
+    ov, slots = tb.overflow_ids(info.overflow_mask)
     ov_rows = tb.gather_stream(table, ov, poison).contiguous()
     rec = tb.raster_records(ov_rows, bbox, ov)
     z0 = torch.full((h, w), float("inf"), device=dev)
     i0 = torch.full((h, w), -1, dtype=torch.int32, device=dev)
     count = dict(width=w, height=h, n_live=info.n_overflow)
     z3, i3 = visibility_merge_kernel(rec, z0, i0, **count)
-    g4 = tb.resolve_merge_kernel(ov_rows, i3, None, **count)
-    g4p = tb.resolve_merge_plain(ov_rows, i3, None, **count)
+    g4 = tb.resolve_merge_kernel(ov_rows, i3, None, slots=slots, **count)
+    g4p = tb.resolve_merge_plain(ov_rows, i3, None, slots=slots, **count)
     sync()
     err4 = max_err(g4[:, i3 >= 0], g4p[:, i3 >= 0])
     assert err4 <= PLANE_TOL, f"K4 at {a} channels differs by {err4}"
+    k4 = bound(*resolve_merge_work(i3, slots, n_ov, a)[:2])
+    k4_ms = graph_ms(lambda: tb.resolve_merge_kernel(
+        ov_rows, i3, None, slots=slots, **count), 50)
+    print(f"K4 at {a} channels on the camera spill ({n_ov} rows): {k4_ms} "
+          f"ms (earlier {EARLIER_MS['resolve_merge_camera']}), bound "
+          f"{k4['bound_ms']} ({k4['bound_by']}), {k4['least_ms'] / k4_ms} "
+          f"of it; max |d| {err4}", flush=True)
     seeds = (z3, i3, g4)
     zs, is_, os_ = tb.fused_kernel(rows, info.bin_start, prm, seeds=seeds,
                                    n_overflow=info.n_overflow, **kw)
@@ -1304,8 +1435,9 @@ def phase_camera_kernels(dev):
         plain_ms=cuda_ms(lambda: tb.fused_plain(
             rows, info.bin_start, prm, seeds=seeds,
             n_overflow=info.n_overflow, **kw), 2),
-        resolve_merge_ms=graph_ms(lambda: tb.resolve_merge_kernel(
-            ov_rows, i3, None, **count), 20),
+        resolve_merge_ms=k4_ms,
+        resolve_merge_earlier_ms=EARLIER_MS["resolve_merge_camera"],
+        resolve_merge_bound_ms=k4["bound_ms"],
         resolve_merge_max_abs_err=err4,
         shape=f"{live_pairs(info)} pairs, {n_ov} spilled, {a} channels",
         # The seed planes are read where the seed's id won the pixel.
@@ -2458,7 +2590,8 @@ def main():
     print(f"built {os.path.relpath(so)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    res = phase_kernels(dev)                                 # phase 3
+    measure_launch_floor(dev)                                # phase 3
+    res = phase_kernels(dev)
     res.update(phase_texture_kernels(dev))
     res.update(phase_camera_kernels(dev))
     sync()
@@ -2468,7 +2601,8 @@ def main():
     sync()
     phase_small_reference(dev)                               # phase 6
     sync()
-    backend_launches, _ = phase_backends(dev, card)          # phase 7
+    backend_launches, _, k4_binned = phase_backends(dev, card)  # phase 7
+    res["resolve_merge"]["binned_pipeline"] = k4_binned
     sync()
     mode_launches, _ = phase_windowed_modes(dev, card)       # phase 8
     sync()
@@ -2543,20 +2677,20 @@ def main():
         path_launches[k] = camera_launches["clip_persp_0"][k]
     assert all(n > 0 for n in path_launches.values()), path_launches
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "library_ms", "least_ms", "least_by")
     kernels = [dict(name=n, route="cuda", source=src + f, replaces=r,
                     launches=path_launches[k],
                     **{key: res[k][key] for key in keys})
                for k, (n, f, r) in meta.items()]
     # The redesign order of ROADMAP.md: kernels slower than one torch call
-    # first, then by launches on their path x (ms - bound_ms).
-    excess = {k["name"]: k["launches"] * (k["ms"] - k["bound_ms"])
+    # first, then by launches on their path x (ms - least_ms).
+    excess = {k["name"]: k["launches"] * (k["ms"] - k["least_ms"])
               for k in kernels}
     order = sorted(kernels, key=lambda k: (
         k["library_ms"] is None or k["ms"] <= k["library_ms"],
         -excess[k["name"]]))
     print("redesign order [kernel, slower than one torch call, launches x "
-          "(ms - bound_ms)]: " + json.dumps([
+          "(ms - least_ms)]: " + json.dumps([
               [k["name"], k["library_ms"] is not None
                and k["ms"] > k["library_ms"], excess[k["name"]]]
               for k in order]), flush=True)

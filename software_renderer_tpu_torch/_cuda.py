@@ -17,6 +17,7 @@ bit for bit in coverage, triangle id and depth.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -52,7 +53,8 @@ _SIGNATURES = {
     "sr_visibility_scratch": (_I, _I, _I, _P),
     "sr_visibility_merge": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
                             _P, _P),
-    "sr_resolve_merge": (_P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P),
+    "sr_resolve_merge": (_P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P,
+                         _I, _P),
     "sr_visibility": (_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     "sr_binned_vis": (_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P,
                       _P, _P),
@@ -146,6 +148,19 @@ def check(err: int) -> None:
     if err:
         raise RuntimeError(
             f"CUDA error {err}: {lib().sr_error_string(err).decode()}")
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA ``device``, queried once per
+    card (a kernel with a grid sized for the card, not the frame)."""
+    index = torch.device(device).index
+    return _sm_count(torch.cuda.current_device() if index is None
+                     else index)
 
 
 def stream_of(t: torch.Tensor) -> int:

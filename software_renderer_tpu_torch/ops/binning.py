@@ -46,13 +46,14 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import torch
 
 from .. import _cuda
 from . import frontend as fe
 from .rasterize_kernel import (CHUNK, PLAIN_BLOCK, TILE_H, TILE_W,
-                               live_rows, visibility_merge_kernel)
+                               visibility_merge_kernel)
 from .rasterize_ref import pixel_centers
 from .shading import (_chan_offset, fused_epilogue, fused_output_channels,
                       perspective_epilogue)
@@ -160,21 +161,31 @@ def build_bins(setup, *, width: int, height: int,
                    n_overflow=overflow.sum(dtype=torch.int32))
 
 
-def overflow_ids(overflow_mask, chunk: int = CHUNK) -> torch.Tensor:
+class OverflowList(NamedTuple):
+    """The static overflow list and its slot map."""
+
+    ids: torch.Tensor    # [cap] int32: spilled ids ascending, then -1
+    slots: torch.Tensor  # [T] int32: each triangle's row, cap if none
+
+
+def overflow_ids(overflow_mask, chunk: int = CHUNK) -> OverflowList:
     """The spilled triangles' ids, ascending, then -1: a static
     [ceil(T / chunk) * chunk] int32 list (at least one chunk), the
     length of :func:`ops.frontend.pack_records_planar`'s records (JAX's
-    ``overflow_id_waves`` as one wave: the kernels stop at the count).
-    Positions come from a cumsum and a scatter, with no host sync."""
+    ``overflow_id_waves`` as one wave: the kernels stop at the count);
+    and the scatter's index as the slot map, [T] int32: each triangle's
+    row in the list, the list's length where it did not spill. K4
+    (:func:`resolve_merge_kernel`) finds a pixel's row with one read of
+    it. Positions come from a cumsum and a scatter, with no host sync."""
     t = overflow_mask.shape[0]
     dev = overflow_mask.device
     cap = -(-max(t, 1) // chunk) * chunk
     pos = torch.cumsum(overflow_mask, 0)
+    slots = torch.where(overflow_mask, pos - 1, cap)
     ids = torch.full((cap + 1,), -1, dtype=torch.int32, device=dev)
     # Triangles that did not spill all land in the dropped last slot.
-    ids.scatter_(0, torch.where(overflow_mask, pos - 1, cap),
-                 torch.arange(t, dtype=torch.int32, device=dev))
-    return ids[:cap]
+    ids.scatter_(0, slots, torch.arange(t, dtype=torch.int32, device=dev))
+    return OverflowList(ids[:cap], slots.to(torch.int32))
 
 
 def gather_stream(table, ids, poison):
@@ -187,18 +198,12 @@ def gather_stream(table, ids, poison):
 # Overflow G-buffer resolve (K4)
 # ---------------------------------------------------------------------------
 
-def _write_planes(gb, rows, row_keys, pixel_keys, hit, *, y_start: int):
-    """Where ``hit``, find each pixel's key among the ascending
-    ``row_keys`` and write that row's planes ``px * x + py * y + pc``,
-    evaluated at the pixel center, into ``gb`` [A, H, W] (in place)."""
+def _write_rows(gb, r, pix, *, y_start: int):
+    """Write the stream rows ``r``'s planes ``px * x + py * y + pc``,
+    evaluated at the centers of the flat pixels ``pix``, into ``gb``
+    [A, H, W] (in place)."""
     n_channels, height, width = gb.shape
-    if rows.shape[0] == 0:
-        return gb
-    idx = torch.clamp(torch.searchsorted(row_keys, pixel_keys),
-                      max=rows.shape[0] - 1)
-    pix = torch.nonzero(hit & (row_keys[idx] == pixel_keys)).squeeze(1)
-    r = rows[idx[pix]]
-    xs, ys = pixel_centers(width, height, y_start, rows.device)
+    xs, ys = pixel_centers(width, height, y_start, gb.device)
     xs = xs.expand(height, width).reshape(-1)[pix]
     ys = ys.expand(height, width).reshape(-1)[pix]
     flat = gb.view(n_channels, -1)
@@ -208,19 +213,65 @@ def _write_planes(gb, rows, row_keys, pixel_keys, hit, *, y_start: int):
     return gb
 
 
+def _write_planes(gb, rows, row_keys, pixel_keys, hit, *, y_start: int):
+    """Where ``hit``, find each pixel's key among the ascending
+    ``row_keys`` and write that row's planes into ``gb`` (in place)."""
+    if rows.shape[0] == 0:
+        return gb
+    idx = torch.clamp(torch.searchsorted(row_keys, pixel_keys),
+                      max=rows.shape[0] - 1)
+    pix = torch.nonzero(hit & (row_keys[idx] == pixel_keys)).squeeze(1)
+    return _write_rows(gb, rows[idx[pix]], pix, y_start=y_start)
+
+
+def slot_map(rows, n_live=None):
+    """[max id + 1] int32: each of the first ``n_live`` rows' position by
+    its id (column 10; the first row of an id where it repeats), N (never
+    live) for the other ids: the map :func:`overflow_ids` returns with
+    its list, built from rows made by hand with one scatter. Reads the
+    largest id on the host, so no frame calls it."""
+    n = rows.shape[0]
+    dev = rows.device
+    ids = rows[:, REC_BASE - 1].to(torch.int64)
+    live = ids >= 0
+    if n_live is not None:
+        live &= torch.arange(n, device=dev) < n_live
+    size = int(torch.where(live, ids, -1).max()) + 1 if n else 0
+    slots = torch.full((size + 1,), n, dtype=torch.int32, device=dev)
+    slots.scatter_reduce_(0, torch.where(live, ids, size),
+                          torch.arange(n, dtype=torch.int32, device=dev),
+                          reduce="amin")
+    return slots[:size]
+
+
+def _merge_hits(rows, tid, slots, n_live):
+    """(flat pixels whose winner is one of the first ``n_live`` rows,
+    those rows' indices) through the slot map."""
+    n = rows.shape[0]
+    q = tid.reshape(-1).long()
+    known = (q >= 0) & (q < slots.numel())
+    r = torch.cat([slots, slots.new_full((1,), n)])[
+        torch.where(known, q, slots.numel())]
+    hit = (r >= 0) & (r < n) & (r < (n if n_live is None else n_live))
+    pix = torch.nonzero(hit).squeeze(1)
+    return pix, r[pix].long()
+
+
 def resolve_merge_plain(rows, tid, gb_in, *, width: int, height: int,
-                        y_start: int = 0, n_live=None):
-    """Plain version: where ``tid`` equals the id of one of the first
-    ``n_live`` rows, that row's planes evaluated at the pixel; ``gb_in``
-    elsewhere (0 where it is None)."""
-    rows = live_rows(rows, n_live)
-    q = tid.reshape(-1).contiguous()
+                        y_start: int = 0, n_live=None, slots=None,
+                        inplace: bool = False):
+    """Plain version: where ``tid``'s triangle has a row before
+    ``n_live`` (``slots[tid]``; built by :func:`slot_map` when None),
+    that row's planes evaluated at the pixel; ``gb_in`` elsewhere (0
+    where it is None). ``inplace``: write into ``gb_in`` and return
+    it."""
+    if slots is None:
+        slots = slot_map(rows, n_live)
     gb = (torch.zeros((_row_channels(rows), height, width),
-                      device=rows.device)
-          if gb_in is None else gb_in.clone())
-    return _write_planes(gb, rows,
-                         rows[:, REC_BASE - 1].to(torch.int32).contiguous(),
-                         q, q >= 0, y_start=y_start)
+                      device=rows.device) if gb_in is None
+          else gb_in if inplace else gb_in.clone())
+    pix, r = _merge_hits(rows, tid, slots, n_live)
+    return _write_rows(gb, rows[r], pix, y_start=y_start)
 
 
 def _row_channels(rows) -> int:
@@ -232,29 +283,44 @@ def _row_channels(rows) -> int:
 
 
 def resolve_merge_kernel(rows, tid, gb_in, *, width: int, height: int,
-                         y_start: int = 0, n_live=None):
+                         y_start: int = 0, n_live=None, slots=None,
+                         inplace: bool = False):
     """Overflow G-buffer resolve.
 
-    rows: [N, 11 + 3A] float32 stream rows, the first ``n_live`` sorted
-    by id (column 10); tid: [H, W] int32 winner ids; gb_in: [A, H, W]
-    float32 seed planes, or None: then only the pixels whose winner is a
-    live row are defined (the kernel writes nothing else, and with a
-    count of 0 nothing at all; the plain version writes 0 there), which
-    is all the fused kernel reads of its seed planes; n_live: None (every
-    row is live) or a 0-d int32 tensor on the rows' device, JAX's
-    ``n_live``: rows at or past it are never read, so a static list
-    serves every frame and a count of 0 returns the seed. Returns
-    [A, H, W]. CPU tensors run :func:`resolve_merge_plain`; CUDA tensors
-    launch csrc/resolve_merge.cu.
+    rows: [N, 11 + 3A] float32 stream rows; tid: [H, W] int32 winner ids;
+    gb_in: [A, H, W] float32 seed planes, or None: then only the pixels
+    whose winner has a live row are defined (the kernel writes nothing
+    else, and with a count of 0 nothing at all; the plain version writes
+    0 there), which is all the fused kernel reads of its seed planes;
+    n_live: None (every row is live) or a 0-d int32 tensor on the rows'
+    device, JAX's ``n_live``: rows at or past it are never read, so a
+    static list serves every frame and a count of 0 returns the seed;
+    slots: [T] int32, triangle id -> row (:func:`overflow_ids`'
+    ``slots``), a row at or past the count meaning none. Without it the
+    wrapper builds the map from the rows' id column with
+    :func:`slot_map` (one scatter, and a host read of the largest id):
+    for rows made by hand, never on a frame. inplace: the seed is the
+    caller's to change: only the live winners' pixels of ``gb_in`` are
+    written, and ``gb_in`` is returned; out of place the wrapper clones
+    the seed first. Returns [A, H, W]. CPU tensors run
+    :func:`resolve_merge_plain`; CUDA tensors launch
+    csrc/resolve_merge.cu.
 
-    What bounds it on the card: memory (one id read and A seed reads and
-    writes per pixel). The TPU kernel walks every record per tile; here
-    each pixel binary-searches its id among the live sorted rows.
+    What bounds it on the card: memory (the id of each pixel, and the
+    slot and A plane writes of each live winner). The TPU kernel walks
+    every record per tile; here a pixel reads its row's index from the
+    slot map. A fixed grid of a few blocks per SM strides over 4-pixel
+    groups; each warp queues its live winners in shared memory and
+    evaluates their planes 32 at a time, and each block reads the count
+    once, so a launch at a count of 0 returns at once.
     """
+    if inplace and gb_in is None:
+        raise ValueError("inplace needs a seed")
     if rows.device.type == "cpu":
         return resolve_merge_plain(rows, tid, gb_in, width=width,
                                    height=height, y_start=y_start,
-                                   n_live=n_live)
+                                   n_live=n_live, slots=slots,
+                                   inplace=inplace)
     dev = rows.device
     _cuda.require(rows, torch.float32, "rows", ndim=2)
     a = _row_channels(rows)
@@ -264,13 +330,18 @@ def resolve_merge_kernel(rows, tid, gb_in, *, width: int, height: int,
                       shape=(a, height, width))
     if n_live is not None:
         _cuda.require(n_live, torch.int32, "n_live", device=dev, shape=())
-    gb = torch.empty((a, height, width), dtype=torch.float32, device=dev)
+    if slots is None:
+        slots = slot_map(rows, n_live)
+    _cuda.require(slots, torch.int32, "slots", device=dev, ndim=1)
+    gb = (gb_in if inplace else gb_in.clone() if gb_in is not None
+          else torch.empty((a, height, width), dtype=torch.float32,
+                           device=dev))
     lib = _cuda.lib()
     _cuda.launches["resolve_merge"] += 1
     _cuda.check(lib.sr_resolve_merge(
         rows.data_ptr(), rows.shape[0], _ptr(n_live), rows.shape[1], a,
-        tid.data_ptr(), _ptr(gb_in), width, height, y_start, gb.data_ptr(),
-        _cuda.stream_of(rows)))
+        tid.data_ptr(), slots.data_ptr(), slots.numel(), width, height,
+        y_start, gb.data_ptr(), _cuda.sm_count(dev), _cuda.stream_of(rows)))
     return gb
 
 
@@ -609,14 +680,14 @@ def fused_pipeline(setup, attrs, params, *, width: int,
     bbox = fe.bbox_table(ps)
     dev = table.device
     geo = dict(width=width, height=height, y_start=y_start)
-    ov = overflow_ids(info.overflow_mask, chunk)
+    ov, slots = overflow_ids(info.overflow_mask, chunk)
     ov_rows = gather_stream(table, ov, poison).contiguous()
     z_ov, id_ov = visibility_merge_kernel(
         raster_records(ov_rows, bbox, ov),
         torch.full((height, width), float("inf"), device=dev),
         torch.full((height, width), -1, dtype=torch.int32, device=dev),
         n_live=info.n_overflow, **geo)
-    gb_ov = resolve_merge_kernel(ov_rows, id_ov, None,
+    gb_ov = resolve_merge_kernel(ov_rows, id_ov, None, slots=slots,
                                  n_live=info.n_overflow, **geo)
     return fused_kernel(rows, info.bin_start, params, bbox=bbox,
                         chans=chans, has_light=has_light,
@@ -827,7 +898,7 @@ def binned_pipeline(setup, attrs=None, *, width: int,
     bbox = fe.bbox_table(ps)
     depth, tri_id = binned_vis_kernel(rows, info.bin_start, bbox=bbox,
                                       tile_h=tile_h, tile_w=tile_w, **geo)
-    ov = overflow_ids(info.overflow_mask, chunk)
+    ov, slots = overflow_ids(info.overflow_mask, chunk)
     ov_rows = gather_stream(table, ov, poison).contiguous()
     depth, tri_id = visibility_merge_kernel(
         raster_records(ov_rows, bbox, ov), depth, tri_id,
@@ -836,8 +907,10 @@ def binned_pipeline(setup, attrs=None, *, width: int,
         return depth, tri_id, None
     gb = resolve_kernel(rows, info.bin_start, tri_id, n_channels=a,
                         tile_h=tile_h, tile_w=tile_w, **geo)
+    # The resolve's planes are this pipeline's own: K4 writes the overflow
+    # winners' pixels into them in place.
     gb = resolve_merge_kernel(ov_rows, tri_id, gb, n_live=info.n_overflow,
-                              **geo)
+                              slots=slots, inplace=True, **geo)
     return depth, tri_id, gb.permute(1, 2, 0)
 
 

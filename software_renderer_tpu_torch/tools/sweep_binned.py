@@ -124,9 +124,12 @@ def inputs(dev) -> dict:
     z0 = torch.full((h, w), float("inf"), device=dev)
     i0 = torch.full((h, w), -1, dtype=torch.int32, device=dev)
     z3, i3 = visibility_merge_kernel(rec, z0, i0, width=w, height=h)
+    # The static list's slot map also indexes the compact list: its first
+    # rows are the same ids in the same order.
+    _, slots = tb.overflow_ids(info1.overflow_mask)
     g4 = tb.resolve_merge_kernel(
         tb.gather_stream(table, ov, poison).contiguous(), i3,
-        torch.zeros((a, h, w), device=dev), width=w, height=h)
+        torch.zeros((a, h, w), device=dev), width=w, height=h, slots=slots)
     info_b = tb.build_bins(ps, width=w, height=h, pair_budget_factor=BUDGET)
     rows = lambda i: tb.gather_stream(table, i.ids, poison).contiguous()
     # The same launches with every bin empty: what is left is the blocks'

@@ -1386,7 +1386,7 @@ def test_count_kernels_match_plain(bands):
     info = tb.build_bins(ps, width=w, height=h, kmax=1, bands=bands)
     n = info.n_overflow
     assert int(n) > 0
-    ov = tb.overflow_ids(info.overflow_mask)
+    ov, slots = tb.overflow_ids(info.overflow_mask)
     ov_rows = tb.gather_stream(table, ov, poison).contiguous()
     rec = tb.raster_records(ov_rows, bbox, ov)
     z0 = torch.full((h, w), float("inf"), device="cuda")
@@ -1406,13 +1406,13 @@ def test_count_kernels_match_plain(bands):
     # With no seed K4 defines the overflow winners' pixels only (all that
     # K2 reads of its seed planes).
     gk = tb.resolve_merge_kernel(ov_rows, ik, None, width=w, height=h,
-                                 n_live=n)
+                                 n_live=n, slots=slots)
     gp = tb.resolve_merge_plain(ov_rows, ik, None, width=w, height=h,
-                                n_live=n)
+                                n_live=n, slots=slots)
     g_0 = tb.resolve_merge_kernel(ov_rows, ik, junk[2], width=w, height=h,
-                                  n_live=zero)
+                                  n_live=zero, slots=slots)
     g_s = tb.resolve_merge_kernel(ov_rows, ik, junk[2], width=w, height=h,
-                                  n_live=n)
+                                  n_live=n, slots=slots)
     torch.cuda.synchronize()
     won = ik >= 0
     assert float((gk - gp)[:, won].abs().max()) <= PLANE_TOL
@@ -1427,6 +1427,96 @@ def test_count_kernels_match_plain(bands):
     assert _equal(is_, isp) and _equal(zs, zsp)
     assert float((os_ - osp).abs().max()) <= PLANE_TOL
     assert _equal(is_, static[1]) and _equal(zs, static[0])
+
+
+def _k4_inputs(case):
+    """K4's inputs as binned_pipeline makes them on a kmax=1 spill:
+    (stream rows of the static overflow list, its slot map, the count,
+    winner ids of K3 alone (the fused path's), winner ids of K5 then K3
+    (binned_pipeline's, spilled and binned), channels, geometry)."""
+    if case == "nine":
+        rp = scenes.config4_camera(0.0, width=320, height=180,
+                                   triangles=3000, device="cuda")
+        setup, pv, _, _, _, _ = clip_inputs(rp)
+        ps = fe.from_setup(setup)
+        cols = fe.attr_corner_cols(pv)
+        geo = dict(width=320, height=180, y_start=0)
+    else:
+        w, h, y0 = {"frame": (320, 192, 0), "ragged": (1917, 37, 0),
+                    "band": (320, 96, 64)}[case]
+        rp = scenes.config4_many_objects(0.0, width=w, height=h + 2 * y0,
+                                         triangles=3000, device="cuda")
+        ps, _, cols, _, _, _ = triangle_inputs(rp)
+        geo = dict(width=w, height=h, y_start=y0)
+    table, a, poison = fe.stream_table_planar(
+        ps, fe.attribute_plane_cols(ps, cols))
+    bbox = fe.bbox_table(ps)
+    info = tb.build_bins(ps, kmax=1, **geo)
+    ov, slots = tb.overflow_ids(info.overflow_mask)
+    ov_rows = tb.gather_stream(table, ov, poison).contiguous()
+    rec = tb.raster_records(ov_rows, bbox, ov)
+    hw = (geo["height"], geo["width"])
+    z0 = torch.full(hw, float("inf"), device="cuda")
+    i0 = torch.full(hw, -1, dtype=torch.int32, device="cuda")
+    _, i_ov = visibility_merge_kernel(rec, z0, i0, n_live=info.n_overflow,
+                                      **geo)
+    rows = tb.gather_stream(table, info.ids, poison).contiguous()
+    zb, ib = tb.binned_vis_kernel(rows, info.bin_start, bbox=bbox, **geo)
+    _, i_mix = visibility_merge_kernel(rec, zb, ib, n_live=info.n_overflow,
+                                       **geo)
+    return ov_rows, slots, int(info.n_overflow), i_ov, i_mix, a, geo
+
+
+@pytest.mark.parametrize("case", ["frame", "ragged", "band", "nine"])
+def test_resolve_merge_kernel_equals_plain_bit_for_bit(case):
+    """K4 against its plain version, bit for bit, on the overflow
+    winners of a kmax=1 spill: slots given and built by the wrapper,
+    counts of 0, some and all rows (and no count), no seed, a seed out of
+    place and in place, ids of K3 alone and of K5 then K3 (binned ids
+    under the seed, which must stay), and those ids followed in memory by
+    a spilled id; at 320x192, at 1917x37 (H*W % 4 = 1: the scalar tail),
+    in the band of rows [64, 160) and at 9 channels."""
+    ov_rows, slots, n, i_ov, i_mix, a, geo = _k4_inputs(case)
+    h, w = geo["height"], geo["width"]
+    assert n > 1 and bool((i_mix >= 0).any())
+    assert (h * w % 4 != 0) == (case == "ragged")
+    seed = torch.from_numpy(np.random.default_rng(5).random(
+        (a, h, w), dtype=np.float32)).to("cuda")
+    # The ids again, followed in memory by a spilled triangle's id: a read
+    # past the frame's end would write its planes past the plane.
+    fenced = torch.full((h * w + 64,), int(torch.nonzero(slots < n)[0]),
+                        dtype=torch.int32, device="cuda")
+    fenced[:h * w] = i_mix.reshape(-1)
+    for tid in (i_ov, i_mix, fenced[:h * w].view(h, w)):
+        q = tid.long()
+        r = torch.where(q >= 0, slots[q.clamp(min=0)], ov_rows.shape[0])
+        for live in (0, n // 2, n, None):
+            n_live = (None if live is None else
+                      torch.tensor(live, dtype=torch.int32, device="cuda"))
+            won = r < (n if live is None else live)
+            kw = dict(n_live=n_live, **geo)
+            want = tb.resolve_merge_plain(ov_rows, tid, seed, slots=slots,
+                                          **kw)
+            bare = tb.resolve_merge_plain(ov_rows, tid, None, slots=slots,
+                                          **kw)
+            for sl in (slots, None):
+                got = tb.resolve_merge_kernel(ov_rows, tid, seed, slots=sl,
+                                              **kw)
+                none = tb.resolve_merge_kernel(ov_rows, tid, None, slots=sl,
+                                               **kw)
+                buf = seed.clone()
+                inplace = tb.resolve_merge_kernel(ov_rows, tid, buf,
+                                                  slots=sl, inplace=True,
+                                                  **kw)
+                torch.cuda.synchronize()
+                what = (case, tid is i_mix, live, sl is None)
+                assert _equal(got, want), what
+                assert inplace is buf and _equal(buf, want), what
+                assert _equal(none[:, won], bare[:, won]), what
+            assert _equal(want[:, ~won], seed[:, ~won])
+            assert bool(won.any()) == (live != 0)
+    binned = (i_mix >= 0) & (slots[i_mix.long().clamp(min=0)] >= n)
+    assert bool(binned.any()), "no binned id under a seed: vacuous"
 
 
 def _spill_transforms(rp):

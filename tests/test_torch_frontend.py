@@ -222,7 +222,7 @@ def test_import_leaves_jax_out():
         " 'models.teapot', 'runtime', 'utils.log', 'utils.image_io',"
         " 'utils.checkpoint', 'utils.device', 'utils.timing',"
         " 'utils.profiling', 'utils.present', 'utils.display',"
-        " 'parallel.frame_graph'):\n"
+        " 'parallel.frame_graph', 'tools.sweep_resolve_merge'):\n"
         "    assert p.__name__ + '.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'software_renderer_tpu'"

@@ -112,7 +112,7 @@ def test_static_bins_match_jax(c4, bands, kmax, budget):
     assert all(np.all(np.diff(v) > 0) for v in lists.values())
     # The overflow list: JAX's overflow_id_waves as one chunk-padded wave.
     cap = -(-t // 128) * 128
-    ov = tbin.overflow_ids(info_t.overflow_mask)
+    ov, _ = tbin.overflow_ids(info_t.overflow_mask)
     assert ov.dtype == torch.int32 and ov.shape == (cap,)
     np.testing.assert_array_equal(
         np.asarray(jbin.overflow_id_waves(info_j, cap)), ov.numpy())
@@ -120,15 +120,22 @@ def test_static_bins_match_jax(c4, bands, kmax, budget):
 
 def test_overflow_ids_edges():
     """Ascending ids then -1 for masks with nothing, everything and a
-    random half spilled, lengths padded to the chunk."""
+    random half spilled, lengths padded to the chunk; the slot map sends
+    each spilled triangle to its row and every other one to the list's
+    length."""
     rng = np.random.default_rng(3)
     for mask in (np.zeros(5, bool), np.ones(130, bool),
                  rng.random(300) < 0.5, np.zeros(0, bool)):
-        ov = tbin.overflow_ids(torch.from_numpy(mask), chunk=64).numpy()
+        ov, slots = tbin.overflow_ids(torch.from_numpy(mask), chunk=64)
+        ov, slots = ov.numpy(), slots.numpy()
         n = int(mask.sum())
-        assert ov.shape == (max(-(-mask.size // 64), 1) * 64,)
+        cap = max(-(-mask.size // 64), 1) * 64
+        assert ov.shape == (cap,)
         np.testing.assert_array_equal(ov[:n], np.nonzero(mask)[0])
         assert (ov[n:] == -1).all()
+        assert slots.dtype == np.int32 and slots.shape == mask.shape
+        np.testing.assert_array_equal(slots[ov[:n]], np.arange(n))
+        assert (slots[~mask] == cap).all()
 
 
 def _seeds(a, fill):
@@ -168,7 +175,7 @@ def test_merge_plains_count(c4_port):
                            pair_budget_factor=0.85, bands=4)
     n = info.n_overflow
     assert int(n) > 0
-    ov = tbin.overflow_ids(info.overflow_mask)
+    ov, _ = tbin.overflow_ids(info.overflow_mask)
     ov_rows = tbin.gather_stream(table, ov, poison)
     rec = tbin.raster_records(ov_rows, tfe.bbox_table(ps), ov)
     # The static list's rows are the spilled triangles' records.
@@ -194,6 +201,54 @@ def test_merge_plains_count(c4_port):
     assert torch.equal(g4, tbin.resolve_merge_plain(
         ov_rows[:int(n)], i3, torch.zeros((a, H, W)), width=W, height=H))
     assert bool((g4 != 0).any())
+
+
+def test_merge_plain_slots_match_search(monkeypatch):
+    """K4's plain version through the slot map equals the search of the
+    live rows' sorted ids (``_write_planes``, the previous lookup) on the
+    spill scene below: with the map from ``overflow_ids``, with the map
+    built from the rows, out of place and in place, at counts of all the
+    rows, some and none."""
+    rp = tscenes.config2_textured_cube(0.7, width=128, height=96,
+                                       device="cpu")
+    ps, _, attrs, _, _, _ = triangle_inputs(rp)
+    table, a, poison = tfe.stream_table_planar(
+        ps, tfe.attribute_plane_cols(ps, attrs))
+    monkeypatch.setattr(tbin, "KMAX", 0.25)
+    info = tbin.build_bins(ps, width=128, height=96, kmax=tbin.KMAX)
+    n = int(info.n_overflow)
+    assert n == int(ps.valid.sum()) > 1
+    ov, slots = tbin.overflow_ids(info.overflow_mask)
+    rows = tbin.gather_stream(table, ov, poison)
+    # The seed ids hold a triangle that did not spill (a culled one) on
+    # every other column, as binned_pipeline's do.
+    kept = int(torch.nonzero(~info.overflow_mask)[0])
+    i0 = torch.where(torch.arange(128) % 2 == 0, kept, -1).to(
+        torch.int32).expand(96, 128).contiguous()
+    geo = dict(width=128, height=96)
+    _, tid = visibility_merge_plain(
+        tbin.raster_records(rows, tfe.bbox_table(ps), ov),
+        torch.full((96, 128), float("inf")), i0, n_live=info.n_overflow,
+        **geo)
+    assert bool((tid >= 0).any()) and bool((tid == kept).any())
+    seed = torch.from_numpy(
+        np.random.default_rng(1).random((a, 96, 128), dtype=np.float32))
+    for live in (n, n // 2, 0):
+        n_live = torch.tensor(live, dtype=torch.int32)
+        q = tid.reshape(-1)
+        want = tbin._write_planes(
+            seed.clone(), rows[:live], rows[:live, tbin.REC_BASE - 1].to(
+                torch.int32).contiguous(), q, q >= 0, y_start=0)
+        for sl in (slots, None):
+            got = tbin.resolve_merge_plain(rows, tid, seed, n_live=n_live,
+                                           slots=sl, **geo)
+            assert torch.equal(got, want), (live, sl is None)
+        inplace = seed.clone()
+        got = tbin.resolve_merge_kernel(rows, tid, inplace, n_live=n_live,
+                                        slots=slots, inplace=True, **geo)
+        assert got is inplace and torch.equal(got, want)
+        # Rows past the count are never read.
+        assert torch.equal(want, seed) == (live == 0), live
 
 
 def test_spill_frame_render_matches_jax_reference(monkeypatch):
