@@ -95,8 +95,9 @@ the script exits non-zero without printing a result:
    (d) one texture_train_step in mode "1" on make_mesh(2, 2) against
    mesh=None (loss within rel 1e-5, texels within 1e-5); (e) config 3
    from the teapot generator at 1024x1024, card vs CPU at phase 6's
-   size; (f) profiling.trace around two main-path frames in spans, the
-   Chrome trace holding the spans and K2's launches; (g) bench_frame of
+   size; (f) profiling.trace around two main-path frames, the Chrome
+   trace holding the program's spans (sr.render and its layers) and
+   K2's launches; (g) bench_frame of
    the main path (20 iterations) beside phase 5's ms/frame;
 14. the compiled frame, config 4 at 1920x1080: (a) host syncs per frame
    of the eager routes under torch.cuda.set_sync_debug_mode (counted in
@@ -1952,7 +1953,6 @@ def phase_frame_loop(dev, card, tmp):
     for sink in ("png", "viewer", "none"):
         loop = FrameLoop(lambda t: rp, transform_fn, cfg)
         used.clear()
-        profiling.stage_times["frame"].clear()
         reset_counts()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -1970,11 +1970,9 @@ def phase_frame_loop(dev, card, tmp):
         launches[sink] = read_counts(f"FrameLoop ({sink})")
         assert launches[sink]["fe"] == LOOP_FRAMES, launches[sink]
         ms = start.elapsed_time(end) / LOOP_FRAMES
-        stage = [round(x * 1e3, 3) for x in profiling.stage_times["frame"]]
         print(f"FrameLoop, sink {sink}: {LOOP_FRAMES} frames of config4 "
               f"{rp.width}x{rp.height}: {fps} FPS (host clock, sink "
-              f"included), {ms} ms/frame (CUDA events, {card}); "
-              f"stage_times['frame'] ms {stage}; launches "
+              f"included), {ms} ms/frame (CUDA events, {card}); launches "
               f"{json.dumps(launches[sink])}", flush=True)
         if sink == "viewer":
             want = to_rgba8(render(dataclasses.replace(
@@ -2191,29 +2189,31 @@ def phase_teapot(dev, card):
 
 
 def phase_trace(dev, card, tmp):
-    """13f: profiling.trace around two main-path frames, each in a span:
-    the Chrome trace holds the spans and K2's launches."""
+    """13f: profiling.trace around two main-path frames: the Chrome trace
+    holds the program's spans, sr.render and its layers, and K2's
+    launches."""
     rp = scenes.config4_many_objects(0.0, device=dev)
     passes = [dataclasses.replace(rp, transform=bench_transform(
         rp.transform, i)) for i in (0, 1)]
     reset_counts()
     with profiling.trace(os.path.join(tmp, "trace")) as log_dir:
-        for i, p in enumerate(passes):
-            with profiling.span(f"smoke_frame_{i}"):
-                render(p)
+        for p in passes:
+            render(p)
         sync()
     launches = read_counts("the traced frames")
     path = os.path.join(log_dir, profiling.TRACE_FILE)
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     names = [e.get("name", "") for e in events]
-    spans = [n for n in names if n.startswith("smoke_frame_")]
+    spans = [n for n in names if n.startswith(profiling.PREFIX)]
     k2 = [e for e in events if e.get("cat") == "kernel"
           and "walk_kernel<true" in e.get("name", "")]
     print(f"trace: {path} ({os.path.getsize(path)} bytes, {len(events)} "
           f"events): spans {sorted(set(spans))}, {len(k2)} K2 kernel "
           f"events; launches {json.dumps(launches)}", flush=True)
-    assert {"smoke_frame_0", "smoke_frame_1"} <= set(spans), spans
+    assert spans.count("sr.render") == 2, spans
+    assert {f"sr.{k}" for k in ("front", "bins", "spill", "raster",
+                                "texture_tail")} <= set(spans), spans
     assert len(k2) >= 2, "no K2 launch in the trace"
     return launches
 

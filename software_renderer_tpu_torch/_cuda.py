@@ -62,6 +62,7 @@ _SIGNATURES = {
     "sr_sampler": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P),
     "sr_window_lookup": (_P, _I, _I, _P, _P, _P, _I, _P, _P),
     "sr_take_along_axis": (_P, _I, _I, _P, _I, _P, _P),
+    "sr_capture_nodes": (_P, _I, _P),
 }
 
 _lib = None
@@ -161,6 +162,16 @@ def sm_count(device) -> int:
     index = torch.device(device).index
     return _sm_count(torch.cuda.current_device() if index is None
                      else index)
+
+
+def capture_nodes(stream: "torch.cuda.Stream", typed: bool = False) -> int:
+    """Nodes of the CUDA graph that ``stream`` is capturing into (-1 when
+    it is not capturing); with ``typed`` only its kernel, copy and memset
+    nodes, one API call per node."""
+    n = ctypes.c_int(0)
+    check(lib().sr_capture_nodes(stream.cuda_stream, int(typed),
+                                 ctypes.byref(n)))
+    return n.value
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -51,6 +51,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _cuda
+from ..utils.profiling import span
 from . import frontend as fe
 from .rasterize_kernel import (CHUNK, PLAIN_BLOCK, TILE_H, TILE_W,
                                visibility_merge_kernel)
@@ -665,36 +666,41 @@ def fused_pipeline(setup, attrs, params, *, width: int,
     spill-free frame is the static walk's.
     """
     ps = fe.as_planar(setup)
+    if stream_table is None:
+        stream_table = stream_table_of(ps, attrs)
     t = ps.num_triangles
     if bands is None:
         bands = FUSED_BANDS if t >= FUSED_BANDS_MIN_T else 1
     if kmax is None:
         kmax = KMAX * bands
-    info = build_bins(ps, width=width, height=height, y_start=y_start,
-                      tile_h=tile_h, tile_w=tile_w, chunk=chunk, kmax=kmax,
-                      pair_budget_factor=pair_budget_factor, bands=bands)
-    if stream_table is None:
-        stream_table = _stream_table(ps, attrs)
     table, a, poison = stream_table
-    rows = gather_stream(table, info.ids, poison).contiguous()
-    bbox = fe.bbox_table(ps)
+    with span("sr.bins"):
+        info = build_bins(ps, width=width, height=height, y_start=y_start,
+                          tile_h=tile_h, tile_w=tile_w, chunk=chunk,
+                          kmax=kmax, pair_budget_factor=pair_budget_factor,
+                          bands=bands)
+        rows = gather_stream(table, info.ids, poison).contiguous()
+        bbox = fe.bbox_table(ps)
     dev = table.device
     geo = dict(width=width, height=height, y_start=y_start)
-    ov, slots = overflow_ids(info.overflow_mask, chunk)
-    ov_rows = gather_stream(table, ov, poison).contiguous()
-    z_ov, id_ov = visibility_merge_kernel(
-        raster_records(ov_rows, bbox, ov),
-        torch.full((height, width), float("inf"), device=dev),
-        torch.full((height, width), -1, dtype=torch.int32, device=dev),
-        n_live=info.n_overflow, **geo)
-    gb_ov = resolve_merge_kernel(ov_rows, id_ov, None, slots=slots,
-                                 n_live=info.n_overflow, **geo)
-    return fused_kernel(rows, info.bin_start, params, bbox=bbox,
-                        chans=chans, has_light=has_light,
-                        has_texture=has_texture, bands=bands, tile_h=tile_h,
-                        tile_w=tile_w, seeds=(z_ov, id_ov, gb_ov),
-                        n_overflow=info.n_overflow, perspective=perspective,
-                        **geo)
+    with span("sr.spill"):
+        ov, slots = overflow_ids(info.overflow_mask, chunk)
+        ov_rows = gather_stream(table, ov, poison).contiguous()
+        z_ov, id_ov = visibility_merge_kernel(
+            raster_records(ov_rows, bbox, ov),
+            torch.full((height, width), float("inf"), device=dev),
+            torch.full((height, width), -1, dtype=torch.int32, device=dev),
+            n_live=info.n_overflow, **geo)
+        gb_ov = resolve_merge_kernel(ov_rows, id_ov, None, slots=slots,
+                                     n_live=info.n_overflow, **geo)
+    with span("sr.raster"):
+        return fused_kernel(rows, info.bin_start, params, bbox=bbox,
+                            chans=chans, has_light=has_light,
+                            has_texture=has_texture, bands=bands,
+                            tile_h=tile_h, tile_w=tile_w,
+                            seeds=(z_ov, id_ov, gb_ov),
+                            n_overflow=info.n_overflow,
+                            perspective=perspective, **geo)
 
 
 def raster_records(rows, bbox, ids):
@@ -714,8 +720,9 @@ def raster_records(rows, bbox, ids):
                       rows.new_zeros((rows.shape[0], 1))], dim=1)
 
 
-def _stream_table(ps, attrs):
-    """The stream table of attribute columns, [T, 3, A] values or None."""
+def stream_table_of(ps, attrs):
+    """The stream table (table, n_channels, poison) of the planar setup
+    ``ps`` and its attribute columns, [T, 3, A] values or None."""
     if isinstance(attrs, torch.Tensor):
         return fe.stream_table_planar(ps, fe.attribute_planes(ps, attrs))
     return fe.stream_table_planar(ps, fe.attribute_plane_cols(ps,
@@ -887,31 +894,38 @@ def binned_pipeline(setup, attrs=None, *, width: int,
     packing and has no counterpart here.
     """
     ps = fe.as_planar(setup)
-    info = build_bins(ps, width=width, height=height, y_start=y_start,
-                      tile_h=tile_h, tile_w=tile_w, chunk=chunk, kmax=kmax,
-                      pair_budget_factor=pair_budget_factor)
     if stream_table is None:
-        stream_table = _stream_table(ps, attrs)
+        stream_table = stream_table_of(ps, attrs)
     table, a, poison = stream_table
-    rows = gather_stream(table, info.ids, poison).contiguous()
+    with span("sr.bins"):
+        info = build_bins(ps, width=width, height=height, y_start=y_start,
+                          tile_h=tile_h, tile_w=tile_w, chunk=chunk,
+                          kmax=kmax, pair_budget_factor=pair_budget_factor)
+        rows = gather_stream(table, info.ids, poison).contiguous()
+        bbox = fe.bbox_table(ps)
     geo = dict(width=width, height=height, y_start=y_start)
-    bbox = fe.bbox_table(ps)
-    depth, tri_id = binned_vis_kernel(rows, info.bin_start, bbox=bbox,
-                                      tile_h=tile_h, tile_w=tile_w, **geo)
-    ov, slots = overflow_ids(info.overflow_mask, chunk)
-    ov_rows = gather_stream(table, ov, poison).contiguous()
-    depth, tri_id = visibility_merge_kernel(
-        raster_records(ov_rows, bbox, ov), depth, tri_id,
-        n_live=info.n_overflow, **geo)
+    with span("sr.raster"):
+        depth, tri_id = binned_vis_kernel(rows, info.bin_start, bbox=bbox,
+                                          tile_h=tile_h, tile_w=tile_w,
+                                          **geo)
+    with span("sr.spill"):
+        ov, slots = overflow_ids(info.overflow_mask, chunk)
+        ov_rows = gather_stream(table, ov, poison).contiguous()
+        depth, tri_id = visibility_merge_kernel(
+            raster_records(ov_rows, bbox, ov), depth, tri_id,
+            n_live=info.n_overflow, **geo)
     if not a:
         return depth, tri_id, None
-    gb = resolve_kernel(rows, info.bin_start, tri_id, n_channels=a,
-                        tile_h=tile_h, tile_w=tile_w, **geo)
+    with span("sr.raster"):
+        gb = resolve_kernel(rows, info.bin_start, tri_id, n_channels=a,
+                            tile_h=tile_h, tile_w=tile_w, **geo)
     # The resolve's planes are this pipeline's own: K4 writes the overflow
     # winners' pixels into them in place.
-    gb = resolve_merge_kernel(ov_rows, tri_id, gb, n_live=info.n_overflow,
-                              slots=slots, inplace=True, **geo)
-    return depth, tri_id, gb.permute(1, 2, 0)
+    with span("sr.spill"):
+        gb = resolve_merge_kernel(ov_rows, tri_id, gb,
+                                  n_live=info.n_overflow, slots=slots,
+                                  inplace=True, **geo)
+        return depth, tri_id, gb.permute(1, 2, 0)
 
 
 def visibility_binned(setup, *, width: int, height: int,

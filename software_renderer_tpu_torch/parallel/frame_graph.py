@@ -31,6 +31,13 @@ The kernel wrappers count their launches in Python (``_cuda.launches``),
 and a replay calls no wrapper: the launches a capture records are taken
 back out of the counters and credited again on each replay, so the
 counters hold the launches the device ran.
+
+Spans (utils/profiling.py): ``sr.frame_graph.capture`` around a key's
+first frame and its capture, and ``sr.frame_graph.replay|<layer map>``
+around each replay. Every capture records its layer map, the graph's
+nodes by layer in their order, and a replay's span carries it in its
+name, so a profiler's trace splits each replay's device operations by
+layer.
 """
 
 from __future__ import annotations
@@ -43,6 +50,8 @@ from .. import _cuda
 from ..framebuffer import Framebuffer
 from ..ops import texture
 from ..render import RenderPass, render
+from ..utils import profiling
+from ..utils.profiling import span
 
 # Frames since the last reset_routes(), by route: "capture" rendered
 # eagerly and then captured, "replay" replayed from a graph, "eager"
@@ -113,6 +122,8 @@ class _Capture:
     out: Framebuffer             # the graph's static outputs
     launches: dict               # kernel launches of one replay
     rp: RenderPass               # keeps the memory the graph reads alive
+    layers: tuple                # the layer map: ((layer, nodes), ...)
+    replay_span: str             # the replay's span, the map in its name
 
 
 class FrameGraph:
@@ -131,12 +142,14 @@ class FrameGraph:
         key = _key(rp, backend)
         cap = self._captures.get(key)
         if cap is None:
-            fb = render(rp, backend)
-            self._captures[key] = self._capture(rp, backend)
+            with span("sr.frame_graph.capture"):
+                fb = render(rp, backend)
+                self._captures[key] = self._capture(rp, backend)
             routes["capture"] += 1
             return fb
-        cap.transform.copy_(rp.transform)
-        cap.graph.replay()
+        with span(cap.replay_span):
+            cap.transform.copy_(rp.transform)
+            cap.graph.replay()
         for k, n in cap.launches.items():
             _cuda.launches[k] += n
         routes["replay"] += 1
@@ -158,12 +171,18 @@ class FrameGraph:
         with torch.cuda.stream(side):
             graph.capture_begin()
             try:
-                out = render(crp, backend)
+                with profiling.capturing(
+                        lambda: _cuda.capture_nodes(side),
+                        lambda: _cuda.capture_nodes(side, typed=True)
+                ) as layer_map:
+                    out = render(crp, backend)
             finally:
                 graph.capture_end()
         torch.cuda.current_stream(dev).wait_stream(side)
         # Nothing ran during the capture: its launches count per replay.
         counted = {k: _cuda.launches[k] - before[k] for k in before}
         _cuda.launches.update(before)
+        layers = tuple(layer_map.layers)
         return _Capture(graph, static_t, out,
-                        {k: n for k, n in counted.items() if n}, rp)
+                        {k: n for k, n in counted.items() if n}, rp, layers,
+                        profiling.encode("sr.frame_graph.replay", layers))

@@ -56,7 +56,7 @@ from .framebuffer import CLEAR_COLOR, CLEAR_DEPTH, Framebuffer
 from .models.mesh import Mesh
 from .ops import frontend as fe
 from .ops import lines as lines_ops
-from .ops.binning import binned_pipeline, fused_pipeline
+from .ops.binning import binned_pipeline, fused_pipeline, stream_table_of
 from .ops.clip import clip_near, compose_attrs, transform_corners_clip
 from .ops.rasterize_kernel import visibility_pallas
 from .ops.rasterize_ref import visibility_ref
@@ -68,6 +68,7 @@ from .ops.shading import (Light, attribute_channels, finish_fused,
 from .ops.texture import Texture
 from .ops.transforms import inverse_transpose_3x3
 from .ops.vertex import ndc_to_screen, vertex_stage
+from .utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -261,8 +262,13 @@ def _stop_geometry_grads(fn, *inputs):
     because the front-end kernel cuts the graph too. The backward runs
     only when a caller differentiates these inputs: autograd records the
     region only for inputs that require grad, and texture-only training
-    asks for no gradient of them. Forward-mode AD is not supported.
+    asks for no gradient of them, so with no input that requires grad
+    ``fn`` runs without a graph and without the region, which would
+    record nothing. Forward-mode AD is not supported.
     """
+    if not any(x.requires_grad for x in inputs):
+        with torch.no_grad():
+            return fn(*inputs)
     return _StopGeometryGrads.apply(fn, *inputs)
 
 
@@ -356,8 +362,8 @@ def render_triangles(rp: RenderPass, backend: str = "auto",
     out_h = rp.height if rows is None else int(rows)
     y0 = 0 if y_start is None else int(y_start)
     mesh = rp.mesh
-    tris = mesh.triangles().long()
     if backend in ("reference", "pallas"):
+        tris = mesh.triangles().long()
         corner_attrs = None
         if rp.clip_near:
             setup, bary, w_c = clip_front(
@@ -385,93 +391,111 @@ def render_triangles(rp: RenderPass, backend: str = "auto",
                       w_tri=w_c if rp.perspective_correct else None,
                       corner_attrs=corner_attrs)
         return Framebuffer(color=color, depth=depth)
-    chans, attrs, params, has_light, has_texture = shading_inputs(
-        rp, with_attrs=table is None)
-    # The JAX package's budgets for the banded layout: culled scenes emit
-    # about half the pairs, and bands emit ~1.3-1.5x more pairs than
-    # whole tiles.
-    budget = 0.85 if rp.cull_backfaces else 3.0
-    persp = rp.perspective_correct and bool(chans)
-    kw = dict(width=rp.width, height=out_h, y_start=y0,
-              pair_budget_factor=budget)
-    plan = dict(chans=chans, has_light=has_light, has_texture=has_texture,
-                perspective=persp)
-    n_attr = sum(size for _, size in chans)
+    # The layer spans (utils/profiling.py) partition the main path: the
+    # front-end (the clip front-end with clip_near) gathers the inputs
+    # here and runs inside ``geometry``, then the pipeline's bins, spill
+    # and raster, then the texture tail.
+    front_span = "sr.clip_front" if rp.clip_near else "sr.front"
+    with span(front_span):
+        tris = mesh.triangles().long()
+        chans, attrs, params, has_light, has_texture = shading_inputs(
+            rp, with_attrs=table is None)
+        # The JAX package's budgets for the banded layout: culled scenes
+        # emit about half the pairs, and bands emit ~1.3-1.5x more pairs
+        # than whole tiles.
+        budget = 0.85 if rp.cull_backfaces else 3.0
+        persp = rp.perspective_correct and bool(chans)
+        kw = dict(width=rp.width, height=out_h, y_start=y0,
+                  pair_budget_factor=budget)
+        plan = dict(chans=chans, has_light=has_light,
+                    has_texture=has_texture, perspective=persp)
+        n_attr = sum(size for _, size in chans)
 
-    if rp.clip_near:
-        def geometry(corners, transform, *xs):
-            # xs: the [T, 3, A] attribute values (normals rotated), the
-            # shading row.
-            setup, vals = clipped_channels(
-                corners, transform, xs[0] if chans else None, rp.width,
-                rp.height, cull_backfaces=rp.cull_backfaces,
-                perspective=persp)
-            if not chans:
-                return binned_pipeline(setup, None, **kw)[:2]
-            return fused_pipeline(setup, vals, xs[1], **plan, **kw)
+        if rp.clip_near:
+            def geometry(corners, transform, *xs):
+                # xs: the [T, 3, A] attribute values (normals rotated),
+                # the shading row.
+                with span("sr.clip_front"):
+                    setup, vals = clipped_channels(
+                        corners, transform, xs[0] if chans else None,
+                        rp.width, rp.height,
+                        cull_backfaces=rp.cull_backfaces, perspective=persp)
+                    ps = fe.as_planar(setup)
+                    tbl = stream_table_of(ps, vals)
+                return pipeline(ps, tbl, xs[-1] if chans else None)
 
-        inputs = [mesh.positions[tris], rp.transform]
-        if chans:
-            inputs.append(_corner_values(attrs))
-    elif front is not None:
-        names = [f.name for f in dataclasses.fields(fe.PlanarSetup)]
+            inputs = [mesh.positions[tris], rp.transform]
+            if chans:
+                inputs.append(_corner_values(attrs))
+        elif front is not None:
+            names = [f.name for f in dataclasses.fields(fe.PlanarSetup)]
 
-        if table is not None and table[1] != n_attr + persp:
-            raise ValueError(f"the stream table has {table[1]} channels, "
-                             f"this pass {n_attr + persp}")
+            if table is not None and table[1] != n_attr + persp:
+                raise ValueError(f"the stream table has {table[1]} "
+                                 f"channels, this pass {n_attr + persp}")
 
-        def geometry(*xs):
-            # xs: the front's columns, 3 columns per attribute channel
-            # (none with a table), the shading row. Without a table the
-            # stream table is built from the front.
-            ps = fe.PlanarSetup(*xs[:len(names)])
-            if not chans:
-                return binned_pipeline(ps, None, stream_table=table,
-                                       **kw)[:2]
-            if table is not None:
-                return fused_pipeline(ps, None, xs[-1], stream_table=table,
-                                      **plan, **kw)
-            cols = [tuple(xs[len(names) + 3 * i:len(names) + 3 * i + 3])
-                    for i in range(n_attr)]
-            if persp:
-                cols = fe.perspective_chan_vals(cols, ps)
-            return fused_pipeline(ps, cols, xs[-1], **plan, **kw)
+            def geometry(*xs):
+                # xs: the front's columns, 3 columns per attribute channel
+                # (none with a table), the shading row. Without a table
+                # the stream table is built from the front.
+                with span("sr.front"):
+                    ps = fe.PlanarSetup(*xs[:len(names)])
+                    tbl = table
+                    if tbl is None:
+                        cols = [tuple(xs[len(names) + 3 * i:
+                                         len(names) + 3 * i + 3])
+                                for i in range(n_attr)]
+                        if persp:
+                            cols = fe.perspective_chan_vals(cols, ps)
+                        tbl = stream_table_of(ps, cols)
+                return pipeline(ps, tbl, xs[-1] if chans else None)
 
-        inputs = [getattr(front, n) for n in names]
-        if table is None:
-            inputs += [c for cols in _pad_cols(attrs, front.num_triangles)
-                       for c in cols]
-    else:
-        def geometry(*xs):
-            # xs: 9 corner columns, the transform, 3 columns per attribute
-            # channel, the shading row. One front-end launch writes the
-            # setup and the stream table.
-            cols = [tuple(xs[10 + 3 * i:13 + 3 * i]) for i in range(n_attr)]
-            ps, *table = fe.planar_front_table(
-                (xs[0:3], xs[3:6], xs[6:9]), xs[9], cols, rp.width,
-                rp.height, cull_backfaces=rp.cull_backfaces,
-                perspective=persp)
-            if not chans:
-                return binned_pipeline(ps, None, stream_table=table,
-                                       **kw)[:2]
-            return fused_pipeline(ps, None, xs[-1], stream_table=table,
-                                  **plan, **kw)
+            inputs = [getattr(front, n) for n in names]
+            if table is None:
+                inputs += [c for cols in _pad_cols(attrs,
+                                                   front.num_triangles)
+                           for c in cols]
+        else:
+            def geometry(*xs):
+                # xs: 9 corner columns, the transform, 3 columns per
+                # attribute channel, the shading row. One front-end launch
+                # writes the setup and the stream table.
+                with span("sr.front"):
+                    cols = [tuple(xs[10 + 3 * i:13 + 3 * i])
+                            for i in range(n_attr)]
+                    ps, *tbl = fe.planar_front_table(
+                        (xs[0:3], xs[3:6], xs[6:9]), xs[9], cols, rp.width,
+                        rp.height, cull_backfaces=rp.cull_backfaces,
+                        perspective=persp)
+                return pipeline(ps, tbl, xs[-1] if chans else None)
 
-        corners = fe.corner_cols(mesh.positions[tris])
-        inputs = [c for corner in corners for c in corner] + [rp.transform]
-        inputs += [c for cols in attrs for c in cols]
+            corners = fe.corner_cols(mesh.positions[tris])
+            inputs = [c for corner in corners for c in corner]
+            inputs += [rp.transform] + [c for cols in attrs for c in cols]
+
+    def pipeline(ps, tbl, params):
+        # The bins, spill and raster of the planar setup ``ps`` and its
+        # stream table: binned_pipeline's visibility pass without channels.
+        if not chans:
+            return binned_pipeline(ps, None, stream_table=tbl, **kw)[:2]
+        return fused_pipeline(ps, None, params, stream_table=tbl, **plan,
+                              **kw)
+
     if not chans:
         depth, tri_id = _stop_geometry_grads(geometry, *inputs)
-        color = shade_gbuffer(None, tri_id != -1, shading=rp.shading,
-                              chans=chans, light=rp.light, texture=rp.texture,
-                              flat_color=rp.flat_color)
+        with span("sr.texture_tail"):
+            color = shade_gbuffer(None, tri_id != -1, shading=rp.shading,
+                                  chans=chans, light=rp.light,
+                                  texture=rp.texture,
+                                  flat_color=rp.flat_color)
         return Framebuffer(color=color, depth=depth)
-    out_chans = fused_output_channels(rp.shading, chans, has_light,
-                                      has_texture)
     # Texture gradients flow through finish_fused, outside the region.
     depth, tri_id, out = _stop_geometry_grads(geometry, *inputs, params)
-    color = finish_fused(out, tri_id != -1, out_chans=out_chans,
-                         light=rp.light, texture=rp.texture)
+    with span("sr.texture_tail"):
+        out_chans = fused_output_channels(rp.shading, chans, has_light,
+                                          has_texture)
+        color = finish_fused(out, tri_id != -1, out_chans=out_chans,
+                             light=rp.light, texture=rp.texture)
     return Framebuffer(color=color, depth=depth)
 
 
@@ -533,10 +557,11 @@ def render(rp: RenderPass, backend: str = "auto") -> Framebuffer:
             f"render takes one [4, 4] transform, got "
             f"{tuple(rp.transform.shape)}; render a batch of transforms "
             f"with parallel.batch.render_batch")
-    if rp.primitive == "triangle":
-        return render_triangles(rp, backend)
-    if rp.primitive == "line":
-        return render_lines(rp)
-    if rp.primitive in ("point", "vertices"):
-        return render_points(rp)
+    with span("sr.render"):
+        if rp.primitive == "triangle":
+            return render_triangles(rp, backend)
+        if rp.primitive == "line":
+            return render_lines(rp)
+        if rp.primitive in ("point", "vertices"):
+            return render_points(rp)
     raise ValueError(f"unknown primitive {rp.primitive!r}")

@@ -31,8 +31,8 @@ from ..parallel.frame_graph import FrameGraph
 from ..render import RenderPass, render
 from .config import RenderConfig
 from .device import block_on
-from .log import bump, get_logger
-from .profiling import span, timed
+from .log import get_logger
+from .profiling import span
 
 log = get_logger("display")
 
@@ -60,23 +60,26 @@ class FrameLoop:
     def frame(self):
         """Render one frame and advance time by the config's time step.
         The framebuffer is the caller's: a replayed frame is copied out
-        of the graph's outputs."""
-        if self._transform_fn is not None:
-            rp = dataclasses.replace(self._rp,
-                                     transform=self._transform_fn(self.time))
-        else:
-            rp = self._scene_fn(self.time)
-        if self.config.msaa > 1:
-            fb = render_msaa(rp, samples=self.config.msaa,
-                             backend=self.config.backend)
-        elif self._transform_fn is not None:
-            fb = self._graph(rp, backend=self.config.backend)
-            fb = Framebuffer(color=fb.color.clone(), depth=fb.depth.clone())
-        else:
-            fb = render(rp, backend=self.config.backend)
-        self.time += self.config.time_step
-        bump("frames")
-        return fb
+        of the graph's outputs. Spans: ``sr.frame_loop.frame`` around the
+        frame, ``sr.frame_loop.copy_out`` around the copy."""
+        with span("sr.frame_loop.frame"):
+            if self._transform_fn is not None:
+                rp = dataclasses.replace(
+                    self._rp, transform=self._transform_fn(self.time))
+            else:
+                rp = self._scene_fn(self.time)
+            if self.config.msaa > 1:
+                fb = render_msaa(rp, samples=self.config.msaa,
+                                 backend=self.config.backend)
+            elif self._transform_fn is not None:
+                fb = self._graph(rp, backend=self.config.backend)
+                with span("sr.frame_loop.copy_out"):
+                    fb = Framebuffer(color=fb.color.clone(),
+                                     depth=fb.depth.clone())
+            else:
+                fb = render(rp, backend=self.config.backend)
+            self.time += self.config.time_step
+            return fb
 
     def _stage(self, index: int, color: torch.Tensor):
         """(host uint8 [H, W, 4], what to wait for before reading it): on
@@ -99,12 +102,9 @@ class FrameLoop:
         """Render n_frames; optionally write PNGs to ``out_dir`` (through
         ``writer(path, uint8 array)``, by default the native runtime's
         ``write_png``) and/or publish to a live present surface
-        (utils/present.py PresentServer). Returns mean FPS.
-
-        Each frame runs under a profiler span and lands in
-        ``utils.profiling.stage_times['frame']``: while sinking, the time
-        up to the previous frame's copy; otherwise up to this frame's
-        color. Wrap a call in ``utils.profiling.trace()`` for a timeline.
+        (utils/present.py PresentServer). Returns mean FPS, the last
+        frame waited for. Wrap a call in ``utils.profiling.trace()`` for
+        a timeline.
         """
         if out_dir:
             os.makedirs(out_dir, exist_ok=True)
@@ -116,12 +116,9 @@ class FrameLoop:
         fb = None
         t0 = _time.perf_counter()
         for i in range(n_frames):
-            with span(f"frame_{i}"), timed("frame") as out:
-                fb = self.frame()
-                staged = (i, *self._stage(i, fb.color)) if sinking else None
-                out.append(pending[2] if pending is not None
-                           else staged[2] if sinking else fb.color)
+            fb = self.frame()
             if sinking:
+                staged = (i, *self._stage(i, fb.color))
                 if pending is not None:
                     self._sink(writer, out_dir, present, *pending)
                 pending = staged
@@ -140,7 +137,5 @@ class FrameLoop:
         if out_dir:
             writer(os.path.join(out_dir, f"frame_{index:05d}.png"),
                    img.numpy())
-            bump("frames_written")
         if present is not None:
             present.present(img)
-            bump("frames_presented")

@@ -1,14 +1,12 @@
-"""Leveled logging and coarse counters.
+"""Leveled logging.
 
 Counterpart of the JAX package's utils/log.py: stdlib logging under one
 namespaced logger whose level comes from the environment (``SR_TPU_LOG``,
-default WARNING), and a counters registry the frame loop bumps (frames
-rendered, written, presented).
+default WARNING).
 """
 
 from __future__ import annotations
 
-import collections
 import logging
 import os
 
@@ -24,12 +22,3 @@ if not _LOGGER.handlers:
 
 def get_logger(name: str | None = None) -> logging.Logger:
     return _LOGGER if name is None else _LOGGER.getChild(name)
-
-
-# Coarse metrics: counters the render loop bumps (frames rendered, frames
-# written, frames presented, ...).
-counters: collections.Counter = collections.Counter()
-
-
-def bump(name: str, value: int = 1) -> None:
-    counters[name] += value

@@ -1604,3 +1604,129 @@ def test_frame_graph_eager_routes_are_counted():
     for i, fb in enumerate(frames):
         want = render(_config4_loop_scene(0.5 * i))
         assert _equal(fb.color, want.color) and _equal(fb.depth, want.depth)
+
+
+def _replays_by_layer(fn):
+    """``fn()`` under torch.profiler: per replay span of the program,
+    (its layer map, the names of the device operations of the graph
+    launch inside it, by start)."""
+    import json
+    import os
+    import tempfile
+    from software_renderer_tpu_torch.utils import profiling
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            evs = [e for e in json.load(f)["traceEvents"]
+                   if e.get("ph") == "X"]
+    finally:
+        os.unlink(path)
+    corr = lambda e: e.get("args", {}).get("correlation")
+    ops = {}
+    for e in evs:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            ops.setdefault(corr(e), []).append((e["ts"], e["name"]))
+    launches = [e for e in evs if e.get("cat") in ("cuda_runtime",
+                                                   "cuda_driver")
+                and "GraphLaunch" in e["name"]]
+    out = []
+    prefix = "sr.frame_graph.replay|"
+    for sp in evs:
+        if sp.get("cat") != "user_annotation" or \
+                not sp["name"].startswith(prefix):
+            continue
+        layers = [(k, int(n)) for k, n in (p.split("=") for p in
+                                           sp["name"][len(prefix):]
+                                           .split("|"))]
+        inside = [corr(e) for e in launches if e["tid"] == sp["tid"]
+                  and sp["ts"] <= e["ts"] <= sp["ts"] + sp["dur"]]
+        assert len(inside) == 1, inside
+        out.append((layers, [n for _, n in sorted(ops.get(inside[0], []))]))
+    assert profiling._map is None
+    return out
+
+
+def _layer_case(case, monkeypatch):
+    """(RenderPass, [B, 4, 4] transforms, front layer) of a main-path,
+    a spilling and a camera frame."""
+    if case == "camera":
+        rp = scenes.config4_camera(0.0, width=256, height=144,
+                                   triangles=3000, device="cuda")
+        ts = torch.stack([scenes.config4_camera(
+            t, width=256, height=144, triangles=3000,
+            device="cuda").transform for t in (0.0, 0.4, 0.8, 1.2)])
+        return rp, ts, "clip_front"
+    rp = scenes.config4_many_objects(0.0, width=384, height=192,
+                                     triangles=3000, device="cuda")
+    if case == "spill":
+        monkeypatch.setattr(tb, "KMAX", 0.25)
+        return rp, _spill_transforms(rp), "front"
+    return rp, torch.stack([_config4_loop_scene(t).transform
+                            for t in (0.0, 0.5, 1.0)]), "front"
+
+
+@pytest.mark.parametrize("case", ["main", "spill", "camera"])
+def test_replay_layer_map_matches_its_device_operations(case, monkeypatch):
+    """Every profiled replay of render_batch runs as many device
+    operations as its span's layer map counts, in the main path's layer
+    order: K1 once in the front-end (nowhere on the clip path), the
+    raster layer K2 alone, K3 and K4 in the spill layer."""
+    rp, ts, front = _layer_case(case, monkeypatch)
+    render_batch(rp, ts)
+    replays = _replays_by_layer(lambda: render_batch(rp, ts))
+    assert len(replays) == len(ts) - 1
+    for layers, ops in replays:
+        names = [k for k, _ in layers]
+        assert names == [front, "bins", "spill", "raster", "texture_tail"]
+        assert sum(n for _, n in layers) == len(ops), (layers, len(ops))
+        cut, k = {}, 0
+        for layer, n in layers:
+            cut[layer] = ops[k:k + n]
+            k += n
+        k1 = lambda part: sum("fe_kernel" in n for n in part)
+        assert k1(ops) == k1(cut.get("front", [])) == (front == "front")
+        assert len(cut["raster"]) == 1 and "walk_kernel" in \
+            cut["raster"][0]
+        assert any("resolve_merge_kernel" in n for n in cut["spill"])
+        assert any("visibility_kernel" in n or "span_kernel" in n
+                   for n in cut["spill"])
+
+
+def test_capture_layer_map_is_the_same_under_a_profiler(monkeypatch):
+    """A capture records the same layer map with and without a profiler
+    running, and with none running neither the capture nor a replay
+    reaches record_function."""
+    from software_renderer_tpu_torch.parallel import frame_graph as fg
+    rp, ts, _ = _layer_case("main", monkeypatch)
+    rps = [dataclasses.replace(rp, transform=t) for t in ts]
+
+    def captured():
+        graph = fg.FrameGraph()
+        graph(rps[0])
+        (cap,) = graph._captures.values()
+        return graph, cap.layers
+
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        _, profiled = captured()
+        torch.cuda.synchronize()
+
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    graph, plain = captured()
+    assert plain == profiled and sum(n for _, n in plain) > 0
+    want = render(rps[2])
+    fb = graph(rps[2])
+    torch.cuda.synchronize()
+    assert fg.routes["replay"] >= 1 and _equal(fb.color, want.color)

@@ -164,9 +164,6 @@ def test_checkpoints_load_in_either_package(tmp_path):
 
 
 def test_log_device_and_timing_on_the_cpu():
-    before = tlog.counters["test_bump"]
-    tlog.bump("test_bump", 3)
-    assert tlog.counters["test_bump"] == before + 3
     assert tlog.get_logger("x").name == "software_renderer_tpu_torch.x"
     info = DeviceInfo.query("cpu")
     assert (info.platform, info.kind, info.memory_bytes) == ("cpu", "cpu",
@@ -179,10 +176,9 @@ def test_log_device_and_timing_on_the_cpu():
     assert isinstance(res, BenchResult)
     assert res.frames == 5 and res.p50_ms > 0 and res.fps > 0
     assert res.mtri_s > 0 and res.device_ms is None and "double" in str(res)
-    with profiling.timed("test_stage") as out:
-        out.append(x + 1)
-    assert len(profiling.stage_times["test_stage"]) >= 1
-    assert "test_stage" in profiling.report()
+    with profiling.span("sr.test_stage") as sp:
+        y = x + 1
+    assert sp is None and torch.equal(y, x + 1)
 
 
 def _sphere(t):
@@ -197,9 +193,8 @@ def test_frame_loop_writes_the_rendered_frames(tmp_path, msaa):
     cfg = RenderConfig(width=32, height=32, msaa=msaa, time_step=0.25)
     loop = FrameLoop(_sphere, transform_fn=lambda t: _sphere(t).transform,
                      config=cfg)
-    written = tlog.counters["frames_written"]
     fps = loop.run(2, out_dir=str(tmp_path))
-    assert fps > 0 and tlog.counters["frames_written"] == written + 2
+    assert fps > 0
     assert sorted(os.listdir(tmp_path)) == ["frame_00000.png",
                                             "frame_00001.png"]
     for i in range(2):
@@ -228,3 +223,97 @@ def test_present_server_serves_a_frame():
     assert stats["frame"] == 0
     np.testing.assert_array_equal(tio.decode_png(png),
                                   srt.to_rgba8(fb.color).numpy())
+
+
+# ---------------------------------------------------------------------------
+# The program's spans (utils/profiling.py)
+# ---------------------------------------------------------------------------
+
+_LAYER_ORDER = {False: ["sr.front", "sr.bins", "sr.spill", "sr.raster",
+                        "sr.texture_tail"],
+                True: ["sr.clip_front", "sr.bins", "sr.spill", "sr.raster",
+                       "sr.texture_tail"]}
+
+
+def _small_pass(clip):
+    if clip:
+        return tscenes.config4_camera(0.5, width=64, height=48,
+                                      triangles=600, device="cpu")
+    return tscenes.config2_textured_cube(0.3, width=64, height=64,
+                                         device="cpu")
+
+
+def test_spans_cost_nothing_without_a_profiler(monkeypatch):
+    """With no profiler and no capture, no span reaches record_function
+    on a render."""
+    rp = _small_pass(False)
+
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    fb = srt.render(rp)
+    assert fb.color.shape == (64, 64, 4)
+
+
+@pytest.mark.parametrize("clip", [False, True], ids=["planar", "clip"])
+def test_layer_spans_partition_render(tmp_path, clip):
+    """Under torch.profiler a render holds sr.render and, inside it, the
+    layer spans in the main path's order; every host operator of the
+    frame lies inside exactly one layer span."""
+    rp = _small_pass(clip)
+    with profiling.trace(str(tmp_path)):
+        srt.render(rp)
+    with open(tmp_path / profiling.TRACE_FILE) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    spans = sorted((e for e in events if e.get("cat") == "user_annotation"
+                    and e["name"].startswith(profiling.PREFIX)),
+                   key=lambda e: e["ts"])
+    assert [e["name"] for e in spans[:1]] == ["sr.render"]
+    outer = spans[0]
+
+    def inside(e, s):
+        return s["ts"] <= e["ts"] and (e["ts"] + e["dur"]
+                                       <= s["ts"] + s["dur"])
+
+    layers = spans[1:]
+    assert all(inside(s, outer) for s in layers)
+    names = [s["name"] for s in layers]
+    assert list(dict.fromkeys(names)) == _LAYER_ORDER[clip]
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    assert ops and all(inside(op, outer) for op in ops)
+    assert all(sum(inside(op, s) for s in layers) == 1 for op in ops)
+
+
+def test_capture_layer_map_counts_every_operation():
+    """The layer map a capture records, with each operator of a CPU
+    render standing in for a graph node: every operator in a layer, the
+    layers in the main path's order, and nothing when no capture runs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    rp = _small_pass(False)
+    with Count():
+        with profiling.capturing(lambda: Count.n) as layer_map:
+            srt.render(rp)
+    layers = layer_map.layers
+    assert [name for name, _ in layers] == [s[3:] for s in
+                                            _LAYER_ORDER[False]]
+    assert sum(n for _, n in layers) == Count.n
+    assert profiling.encode("sr.frame_graph.replay", layers) == (
+        "sr.frame_graph.replay|" + "|".join(f"{k}={n}" for k, n in layers))
+    assert profiling._map is None and profiling.span("sr.bins") is \
+        profiling.span("sr.raster")
+    # A layer span inside another would hand the outer one's nodes on.
+    with profiling.capturing(lambda: Count.n), profiling.span("sr.bins"):
+        with pytest.raises(RuntimeError, match="inside sr.bins"):
+            with profiling.span("sr.raster"):
+                pass
