@@ -2439,7 +2439,8 @@ def phase_compiled(dev, card):
                                             f"{mode}) {what}")
         print(f"mode {mode}: render_batch of {len(passes)} frames "
               f"{list(MAIN_FRAMES)} (captured on frame 0, routes "
-              f"{json.dumps(routes)}) equals the eager frames in alpha, "
+              f"{json.dumps(routes)}; captures evicted in the process: "
+              f"{fg.evictions}) equals the eager frames in alpha, "
               f"depth and color bit for bit; launches equal the eager "
               f"frames' {json.dumps(batch_counts)}", flush=True)
     reset_counts()

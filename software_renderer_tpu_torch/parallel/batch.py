@@ -5,7 +5,8 @@ jitted frame function (``render_batch``) or scans groups of vmapped
 frames (``render_batch_chunked``); on one card the port renders the
 frames one after another in both, since a frame's kernels already fill
 the card, and replays one captured frame for each
-(parallel/frame_graph.py, the counterpart of the jit).
+(parallel/frame_graph.py, the counterpart of the jit), kept across
+calls as JAX keeps its compiled function.
 """
 
 from __future__ import annotations
@@ -17,6 +18,9 @@ import torch
 from ..framebuffer import Framebuffer
 from ..render import RenderPass
 from .frame_graph import FrameGraph
+
+# The captured frames of every render_batch call in the process.
+_graph = FrameGraph()
 
 
 def _transforms(rp: RenderPass, transforms) -> torch.Tensor:
@@ -34,15 +38,18 @@ def render_batch(rp: RenderPass, transforms, backend: str = "auto"
 
     The frames render one after another into the preallocated outputs,
     so peak memory is the output plus one frame's intermediates (on the
-    card, those of the captured frame). On the card the first frame
-    renders eagerly and is captured, and every later one replays it
-    (:class:`parallel.frame_graph.FrameGraph`; eagerly where no graph can
-    hold the frame)."""
+    card, those of the captured frame). On the card the first frame of a
+    pass renders eagerly and is captured, and every later one replays it,
+    in this call and in later calls with the same pass
+    (:class:`parallel.frame_graph.FrameGraph`, one for the process;
+    eagerly where no graph can hold the frame). The capture outlives the
+    call: it keeps ``rp``'s mesh, texture, light and model alive and its
+    graph's memory reserved until a new capture finds it the least
+    recently used of more than ``frame_graph.MAX_CAPTURES``."""
     ts = _transforms(rp, transforms)
-    frame = FrameGraph()
     color = depth = None
     for i, t in enumerate(ts):
-        fb = frame(dataclasses.replace(rp, transform=t), backend=backend)
+        fb = _graph(dataclasses.replace(rp, transform=t), backend=backend)
         if color is None:
             color = fb.color.new_empty((len(ts),) + tuple(fb.color.shape))
             depth = fb.depth.new_empty((len(ts),) + tuple(fb.depth.shape))

@@ -20,6 +20,21 @@ flags, the backend, the sampler route and the data pointers of the
 mesh, texture, light, model and flat colour, whose memory the graph
 reads at every replay. A new key means a new capture.
 
+A FrameGraph keeps each capture until it holds more than
+:data:`MAX_CAPTURES`, then drops the least recently used one. A kept
+capture keeps its pass alive (mesh, texture, light and model: the
+memory the graph reads, which must not be freed and handed to another
+pass under the same data pointers) and its graph's memory reserved; the
+bound is what keeps a long-running caller from holding every mesh it
+ever rendered. All captures of one FrameGraph allocate from one graph
+memory pool, on one capture stream (the allocator hands a freed block
+only to an allocation on the stream that freed it): replays run one at
+a time on the caller's stream, so the captures share their
+intermediates, and the memory of a dropped capture goes back to the
+pool for the next capture. A pool of a capture's own would go back to
+the card, once its graph is dropped, only through ``empty_cache`` or
+an allocation that fails outside a capture.
+
 Frames a graph cannot hold run eagerly through ``render``, which still
 runs on the card: an input that requires grad (the autograd graph is
 built per call), the ``"adaptive"`` sampler route (it reads one
@@ -42,6 +57,7 @@ layer.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import torch
@@ -57,6 +73,18 @@ from ..utils.profiling import span
 # eagerly and then captured, "replay" replayed from a graph, "eager"
 # rendered by render() because no graph can hold them.
 routes = {"capture": 0, "replay": 0, "eager": 0}
+
+# Captures dropped by every FrameGraph since the process started, the
+# least recently used first, once a FrameGraph held more than
+# MAX_CAPTURES.
+evictions = 0
+
+# The most captures a FrameGraph keeps: enough for a caller that renders
+# a few scenes, or a scene under a few sampler routes, in turn. The
+# captures share their intermediates, so each beyond the first adds
+# about its outputs: 8 passes of config 4 at 1920x1080 took the card's
+# reserved memory to 1.4 GB in all (NVIDIA H100).
+MAX_CAPTURES = 8
 
 # Backends whose triangle path a graph holds.
 _BACKENDS = ("auto", "binned")
@@ -130,12 +158,20 @@ class FrameGraph:
     """``render(rp, backend)`` per transform, replayed from one CUDA
     graph per key (the module docstring). Calling it returns the frame's
     Framebuffer; on a replay that is the graph's static output, valid
-    until the next call."""
+    until the next call.
+
+    A capture outlives the call that made it: up to
+    :data:`MAX_CAPTURES` are kept, each with its pass (the memory of its
+    mesh, texture, light and model) alive, and the least recently used
+    one beyond that is dropped, counted in :data:`evictions`."""
 
     def __init__(self):
-        self._captures: dict = {}
+        self._captures: collections.OrderedDict = collections.OrderedDict()
+        self._pool = None
+        self._streams: dict = {}      # the capture stream of each device
 
     def __call__(self, rp: RenderPass, backend: str = "auto") -> Framebuffer:
+        global evictions
         if not capturable(rp, backend):
             routes["eager"] += 1
             return render(rp, backend)
@@ -146,7 +182,13 @@ class FrameGraph:
                 fb = render(rp, backend)
                 self._captures[key] = self._capture(rp, backend)
             routes["capture"] += 1
+            # Dropped after the new capture is in, so that the pool keeps
+            # a live graph.
+            while len(self._captures) > MAX_CAPTURES:
+                self._captures.popitem(last=False)
+                evictions += 1
             return fb
+        self._captures.move_to_end(key)
         with span(cap.replay_span):
             cap.transform.copy_(rp.transform)
             cap.graph.replay()
@@ -155,8 +197,11 @@ class FrameGraph:
         routes["replay"] += 1
         return cap.out
 
-    @staticmethod
-    def _capture(rp: RenderPass, backend: str) -> _Capture:
+    def _capture(self, rp: RenderPass, backend: str) -> _Capture:
+        if not self._captures:
+            # The allocator takes no more graphs into a shared pool whose
+            # graphs are all gone.
+            self._pool = torch.cuda.graph_pool_handle()
         dev = rp.mesh.positions.device
         static_t = torch.empty((4, 4), dtype=torch.float32, device=dev)
         static_t.copy_(rp.transform)
@@ -164,12 +209,16 @@ class FrameGraph:
         before = dict(_cuda.launches)
         # capture_begin/end on a side stream, as torch.cuda.graph does,
         # without its synchronize and empty_cache: freeing the allocator's
-        # cache would cost every later frame its allocations again.
-        side = torch.cuda.Stream(dev)
+        # cache would cost every later frame its allocations again. One
+        # stream for every capture, as torch.cuda.graph keeps one, so that
+        # the captures share the pool's blocks (the module docstring).
+        side = self._streams.get(dev)
+        if side is None:
+            side = self._streams[dev] = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(side):
-            graph.capture_begin()
+            graph.capture_begin(pool=self._pool)
             try:
                 with profiling.capturing(
                         lambda: _cuda.capture_nodes(side),

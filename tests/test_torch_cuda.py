@@ -1537,7 +1537,9 @@ def test_frame_graph_replays_spill_frames(mode, monkeypatch):
     """render_batch captures a frame with no spill and replays it on
     frames that spill: every frame equals its eager render bit for bit,
     the routes are one capture and the rest replays, and the launch
-    counters advance on each replay as the eager frames' do."""
+    counters advance on each replay as the eager frames' do. A second
+    call with the same pass replays every frame, the first included,
+    with the same frames and counters."""
     from software_renderer_tpu_torch.parallel import frame_graph as fg
     monkeypatch.setattr(ttex, "TEX_WINDOWED", mode)
     monkeypatch.setattr(tb, "KMAX", 0.25)
@@ -1561,6 +1563,15 @@ def test_frame_graph_replays_spill_frames(mode, monkeypatch):
     for i, e in enumerate(eager):
         assert _equal(got.color[i], e.color), i
         assert _equal(got.depth[i], e.depth), i
+    _cuda.reset_launches()
+    fg.reset_routes()
+    again = render_batch(rp, ts)
+    torch.cuda.synchronize()
+    assert fg.routes == {"capture": 0, "replay": len(ts), "eager": 0}
+    assert dict(_cuda.launches) == want
+    for i, e in enumerate(eager):
+        assert _equal(again.color[i], e.color), i
+        assert _equal(again.depth[i], e.depth), i
     # One more replay through a FrameGraph adds one frame's launches.
     graph = fg.FrameGraph()
     graph(dataclasses.replace(rp, transform=ts[0]))
@@ -1681,7 +1692,7 @@ def test_replay_layer_map_matches_its_device_operations(case, monkeypatch):
     rp, ts, front = _layer_case(case, monkeypatch)
     render_batch(rp, ts)
     replays = _replays_by_layer(lambda: render_batch(rp, ts))
-    assert len(replays) == len(ts) - 1
+    assert len(replays) == len(ts)
     for layers, ops in replays:
         names = [k for k, _ in layers]
         assert names == [front, "bins", "spill", "raster", "texture_tail"]
@@ -1697,6 +1708,73 @@ def test_replay_layer_map_matches_its_device_operations(case, monkeypatch):
         assert any("resolve_merge_kernel" in n for n in cut["spill"])
         assert any("visibility_kernel" in n or "span_kernel" in n
                    for n in cut["spill"])
+
+
+def _config4_full_frames():
+    """Config 4 at full size (99,936 triangles, 1920x1080) on the card
+    and two of bench.py's rotations of it."""
+    rp = scenes.config4_many_objects(0.0, device="cuda")
+    axis = tf.normalize(torch.tensor([1.0, 1.0, 0.0], device="cuda"))
+    ts = torch.stack([rp.transform @ tf.rotation_matrix(
+        tf.quat_from_axis_angle(axis, torch.tensor(t, device="cuda")))
+        for t in (0.0, 0.5)])
+    return rp, ts
+
+
+def test_render_batch_memory_stays_flat_over_calls(monkeypatch):
+    """300 render_batch calls of one pass at 1920x1080 on config 4's
+    scene, from a fresh FrameGraph: the first call captures, the rest
+    replay, and reserved device memory never rises above its level
+    after the first call by more than that call added (a capture per
+    call, each in a pool of its own, ran the card out at call 199 of
+    batch64's 64-frame calls)."""
+    from software_renderer_tpu_torch.parallel import batch
+    from software_renderer_tpu_torch.parallel import frame_graph as fg
+    monkeypatch.setattr(batch, "_graph", fg.FrameGraph())
+    rp, ts = _config4_full_frames()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_reserved()
+    fg.reset_routes()
+    render_batch(rp, ts)
+    first = torch.cuda.memory_reserved()
+    assert fg.routes["capture"] == 1
+    top = first
+    for _ in range(299):
+        render_batch(rp, ts)
+        top = max(top, torch.cuda.memory_reserved())
+    torch.cuda.synchronize()
+    assert fg.routes == {"capture": 1, "replay": 2 * 300 - 1, "eager": 0}
+    assert top - first <= first - before, (before, first, top)
+
+
+def test_render_batch_memory_is_bounded_over_many_passes(monkeypatch):
+    """3 x MAX_CAPTURES passes of config 4 at 1920x1080, each with a
+    texture of its own, through render_batch from a fresh FrameGraph:
+    2 x MAX_CAPTURES evictions, and reserved device memory after the
+    last pass within what the first pass added of its level after the
+    first MAX_CAPTURES."""
+    from software_renderer_tpu_torch.parallel import batch
+    from software_renderer_tpu_torch.parallel import frame_graph as fg
+    monkeypatch.setattr(batch, "_graph", fg.FrameGraph())
+    rp, ts = _config4_full_frames()
+    tex = rp.texture
+    n = fg.MAX_CAPTURES
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_reserved()
+    evicted = fg.evictions
+    fg.reset_routes()
+    reserved = []
+    for _ in range(3 * n):
+        own = ttex.Texture(tex.data.clone(), filter=tex.filter,
+                           wrap=tex.wrap)
+        render_batch(dataclasses.replace(rp, texture=own), ts)
+        reserved.append(torch.cuda.memory_reserved())
+    torch.cuda.synchronize()
+    assert fg.routes == {"capture": 3 * n, "replay": 3 * n, "eager": 0}
+    assert fg.evictions - evicted == 2 * n
+    assert len(batch._graph._captures) == n
+    one = reserved[0] - before
+    assert max(reserved[n:]) - reserved[n - 1] <= one, (before, reserved)
 
 
 def test_capture_layer_map_is_the_same_under_a_profiler(monkeypatch):

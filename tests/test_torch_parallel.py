@@ -211,6 +211,74 @@ def test_frame_graph_key_and_cpu_route(monkeypatch):
     assert fg._key(rp, "auto") != key
 
 
+def test_render_batch_keeps_its_captures_across_calls(monkeypatch):
+    """render_batch's one FrameGraph for the process, with the card's
+    capture and replay stubbed (a replay writes the frame's transform
+    into the graph's outputs): a second call with the same pass replays
+    every frame; a pass with other data pointers gets its own capture;
+    the cache holds at most MAX_CAPTURES and drops the least recently
+    used first, each drop counted in ``evictions``."""
+    import types
+    from software_renderer_tpu_torch.framebuffer import Framebuffer
+    from software_renderer_tpu_torch.models.mesh import mesh_from_numpy
+    from software_renderer_tpu_torch.parallel import batch
+    from software_renderer_tpu_torch.parallel import frame_graph as fg
+    from software_renderer_tpu_torch.render import RenderPass
+
+    def frame(t):
+        return Framebuffer(color=t[0, 3].expand(2, 3, 4).clone(),
+                           depth=t[1, 3].expand(2, 3).clone())
+
+    def capture(self, rp, backend):
+        static_t = rp.transform.clone()
+        out = frame(static_t)
+
+        def replay():
+            out.color.copy_(frame(static_t).color)
+            out.depth.copy_(frame(static_t).depth)
+        return fg._Capture(types.SimpleNamespace(replay=replay), static_t,
+                           out, {}, rp, (), "sr.frame_graph.replay")
+
+    monkeypatch.setattr(fg, "capturable", lambda rp, backend: True)
+    monkeypatch.setattr(fg, "render", lambda rp, backend: frame(rp.transform))
+    monkeypatch.setattr(fg.FrameGraph, "_capture", capture)
+    monkeypatch.setattr(batch, "_graph", fg.FrameGraph())
+    mesh = mesh_from_numpy(np.eye(3), [0, 1, 2], device="cpu")
+    passes = [RenderPass(mesh=dataclasses.replace(
+        mesh, positions=mesh.positions.clone()), transform=torch.eye(4),
+        width=3, height=2) for _ in range(fg.MAX_CAPTURES + 2)]
+    ts = torch.eye(4).repeat(3, 1, 1)
+    ts[:, 0, 3] = torch.tensor([1.0, 2.0, 3.0])
+    ts[:, 1, 3] = torch.tensor([-1.0, -2.0, -3.0])
+
+    def run(i, captures):
+        fg.reset_routes()
+        fb = render_batch(passes[i], ts)
+        assert fg.routes == {"capture": captures, "replay": 3 - captures,
+                             "eager": 0}, (i, fg.routes)
+        assert torch.equal(fb.color[:, 0, 0, 0], ts[:, 0, 3])
+        assert torch.equal(fb.depth[:, 1, 2], ts[:, 1, 3])
+
+    evicted = fg.evictions
+    run(0, 1)
+    run(0, 0)
+    for i in range(1, fg.MAX_CAPTURES):
+        run(i, 1)
+    assert len(batch._graph._captures) == fg.MAX_CAPTURES
+    assert fg.evictions == evicted
+    run(0, 0)                   # pass 0 is now the most recently used
+    run(fg.MAX_CAPTURES, 1)     # drops pass 1
+    assert len(batch._graph._captures) == fg.MAX_CAPTURES
+    assert fg.evictions == evicted + 1
+    run(0, 0)
+    run(1, 1)                   # captured again; drops pass 2
+    run(fg.MAX_CAPTURES + 1, 1)  # drops pass 3
+    assert fg.evictions == evicted + 3
+    kept = [c.rp.mesh for c in batch._graph._captures.values()]
+    want = [*range(4, fg.MAX_CAPTURES + 1), 0, 1, fg.MAX_CAPTURES + 1]
+    assert all(m is passes[i].mesh for m, i in zip(kept, want, strict=True))
+
+
 def test_texture_train_step_over_a_mesh_equals_meshless():
     """JAX's argument order (tex, rp, transforms, targets, mesh, lr=...):
     a 2 x 1 mesh of CPU devices gives the meshless step bit for bit, and
