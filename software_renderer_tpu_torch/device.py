@@ -39,15 +39,22 @@ def _frozen(values):
     return values
 
 
+def resolved(device) -> torch.device:
+    """``device`` as a ``torch.device``, a card without an index as the
+    current one: one key for every spelling of a device."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def constant(values, device, dtype=torch.float32) -> torch.Tensor:
     """A tensor of ``values`` (a number or nested sequence) on
     ``device``, built at the first call and shared by every later one,
     so that a frame copies nothing from the host: a copy from pageable
     host memory waits on the host and cannot be captured into a CUDA
     graph (parallel/frame_graph.py). Callers must not write to it."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    device = resolved(device)
     key = (_frozen(values), dtype, device)
     t = _constants.get(key)
     if t is None:

@@ -17,7 +17,9 @@ overflow ids are a static list (:func:`overflow_ids`, JAX's
 ``overflow_id_waves`` in one wave), and the merge kernels (K3, K4) take
 the live count as a device pointer (JAX's ``n_live``) while K2 reads
 the same count to choose between its static and seeded walks (JAX's
-``lax.cond(n_overflow == 0, ...)``).
+``lax.cond(n_overflow == 0, ...)``). Every bin build also adds its
+spills, by reason, to its device's spill counter (:func:`spill_counts`)
+on the device, so a replayed frame counts too.
 
 Semantics are the JAX package's ops/binning.py; its TPU-only devices are
 not ported: the matmul cumsum (``torch.cumsum`` on int64 is exact), the
@@ -51,6 +53,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _cuda
+from ..device import resolved
 from ..utils.profiling import span
 from . import frontend as fe
 from .rasterize_kernel import (CHUNK, PLAIN_BLOCK, TILE_H, TILE_W,
@@ -104,8 +107,9 @@ def build_bins(setup, *, width: int, height: int,
     ``kmax`` bins, and its inclusive prefix of pair counts stays within
     the budget ``ceil(trunc(pair_budget_factor * T) / chunk) * chunk``
     (the prefix is monotone, so once past the budget every later
-    triangle spills). Every other valid triangle overflows. ``setup``: a
-    PlanarSetup, or a TriangleSetup (the near-plane clip's).
+    triangle spills). Every other valid triangle overflows, and is added
+    to its device's spill counter by reason (:func:`spill_counts`).
+    ``setup``: a PlanarSetup, or a TriangleSetup (the near-plane clip's).
 
     JAX's compact emission with no host sync (JAX binning.py:228-300):
     slot s of the ``pairs_cap = min(budget, ceil(T * kmax / chunk) *
@@ -133,12 +137,17 @@ def build_bins(setup, *, width: int, height: int,
     in_slice = (by1 >= y_start) & (by0 < y_start + gh * tile_h)
     span_w = tx1 - tx0 + 1
     nspan = (span_w * (ty1 - ty0 + 1)).to(torch.int64)
-    valid = ps.valid & in_slice
-    small = valid & (nspan <= kmax) & ps.safe
+    # Each test's mask is a row of one buffer, which the spill counter
+    # sums: valid; and coverage-safe; and within kmax; and within budget.
+    masks = torch.empty((4, t), dtype=torch.bool, device=dev)
+    valid = torch.bitwise_and(ps.valid, in_slice, out=masks[0])
+    safe = torch.bitwise_and(valid, ps.safe, out=masks[1])
+    small = torch.bitwise_and(safe, nspan <= kmax, out=masks[2])
     budget_pairs = -(int(-pair_budget_factor * max(t, 1)) // chunk) * chunk
     cum = torch.cumsum(torch.where(small, nspan, 0), 0)
-    binned = small & (cum <= budget_pairs)
-    overflow = valid & ~binned
+    binned = torch.bitwise_and(small, cum <= budget_pairs, out=masks[3])
+    overflow = valid ^ binned         # valid & ~binned: binned lies in valid
+    n_overflow = _count_spills(masks)
 
     pairs_cap = int(min(budget_pairs, -(-(t * kmax) // chunk) * chunk))
     nspb = torch.where(binned, nspan, 0)
@@ -158,8 +167,55 @@ def build_bins(setup, *, width: int, height: int,
         keys, torch.arange(nbins + 1, device=dev)).to(torch.int32)
     return BinInfo(bin_start=bin_start,
                    ids=torch.where(live, src_c, -1)[order].to(torch.int32),
-                   overflow_mask=overflow,
-                   n_overflow=overflow.sum(dtype=torch.int32))
+                   overflow_mask=overflow, n_overflow=n_overflow)
+
+
+# The spill counter of each device: 5 int64 slots, the sums over every
+# bin build of its masks' rows (valid; and safe; and within kmax; and
+# within the budget) and the bin builds (:func:`_count_spills`).
+_spill_counters: dict = {}
+
+
+def _count_spills(masks):
+    """Add the row sums of a bin build's [4, T] masks (:func:`build_bins`)
+    and 1 to its device's counter, with no host sync, and return the
+    build's overflow count (valid less binned; 0-d int32). Each reason's
+    count is the difference of two consecutive rows' sums
+    (:func:`spill_counts`). The sums stand in for the overflow mask's
+    own, so the counter adds two device operations a build."""
+    dev = resolved(masks.device)
+    counter = _spill_counters.get(dev)
+    if counter is None:
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("a device's first bin build makes its spill "
+                               "counter and must not be captured")
+        counter = _spill_counters[dev] = torch.zeros(
+            5, dtype=torch.int64, device=dev)
+    sums = masks.sum(1, dtype=torch.int32)
+    counter[:4].add_(sums)
+    counter[4:].add_(1)
+    return sums[0] - sums[3]
+
+
+def spill_counts(device) -> dict:
+    """The spill counter of ``device`` since its last reset, read with
+    one host sync: ``frames``, the bin builds (one a frame; one a band
+    in ``render_rows``), and the triangles they spilled, by reason:
+    ``budget`` (past the pair budget), ``kmax`` (spanning more than kmax
+    bins) and ``unsafe`` (not coverage-safe). All 0 on a device that has
+    built no bins."""
+    counter = _spill_counters.get(resolved(device))
+    valid, safe, small, binned, frames = (
+        [0] * 5 if counter is None else counter.tolist())
+    return {"frames": frames, "budget": small - binned,
+            "kmax": safe - small, "unsafe": valid - safe}
+
+
+def reset_spill_counts(device=None) -> None:
+    """Zero the spill counter of ``device``, or of every device."""
+    for dev, counter in _spill_counters.items():
+        if device is None or dev == resolved(device):
+            counter.zero_()
 
 
 class OverflowList(NamedTuple):

@@ -15,6 +15,7 @@ dispatch. The front-end and the reference visibility pass stay op by op:
 under jit XLA:CPU contracts their multiply-adds into FMAs, which moves
 coverage at a few edge pixels.
 """
+import dataclasses
 from functools import partial
 
 import jax
@@ -232,3 +233,97 @@ def test_cpu_tensors_run_plain_versions_without_launches(c4):
     _cuda.reset_launches()
     _run_port(ps_t, attrs_t, prm_t, rp, chans, hl, kmax=1)
     assert all(v == 0 for v in _cuda.launches.values()), _cuda.launches
+
+
+def _uhd_orbit_setup(frame, triangles=3000):
+    """The port's planar setup of config 4's scene at 3840x2160 under
+    bench.py's orbit frame ``frame`` (a turn of frame / 60 s about
+    (1, 1, 0)); at 3000 triangles frame 240 spills about a third of its
+    valid triangles past the culled budget, frame 0 nothing."""
+    from software_renderer_tpu_torch.models import scenes as tscenes
+    from software_renderer_tpu_torch.ops import transforms as ttf
+    from software_renderer_tpu_torch.render import planar_front_of
+    rp = tscenes.config4_many_objects(0.0, width=3840, height=2160,
+                                      triangles=triangles, textured=False,
+                                      device="cpu")
+    q = ttf.quat_from_axis_angle(ttf.normalize(torch.tensor([1.0, 1.0, 0.0])),
+                                 torch.tensor(frame / 60.0))
+    return planar_front_of(
+        dataclasses.replace(rp, transform=rp.transform
+                            @ ttf.rotation_matrix(q))), rp
+
+
+def _spill_rule(ps, width, height, *, kmax, budget_factor, bands,
+                chunk=128):
+    """build_bins' overflow rule, on the host in numpy, by reason: the
+    triangles that are valid and not coverage-safe, safe ones spanning
+    more than ``kmax`` (tile, band) bins, and the rest past the pair
+    budget in id order."""
+    col = lambda name: getattr(ps, name).numpy()
+    valid, safe = col("valid"), col("safe")
+    bh = 64 // bands
+    nb = -(-height // 64) * bands
+    ty0 = np.clip(col("by0") // bh, 0, nb - 1)
+    ty1 = np.clip(col("by1") // bh, 0, nb - 1)
+    nspan = ((col("bx1") // 128 - col("bx0") // 128 + 1)
+             * (ty1 - ty0 + 1)).astype(np.int64)
+    small = valid & safe & (nspan <= kmax)
+    t = valid.shape[0]
+    budget = -(-int(budget_factor * t) // chunk) * chunk
+    past = small & (np.cumsum(np.where(small, nspan, 0)) > budget)
+    return {"budget": int(past.sum()),
+            "kmax": int((valid & safe & (nspan > kmax)).sum()),
+            "unsafe": int((valid & ~safe).sum())}
+
+
+@pytest.mark.parametrize("frame,kmax", [(240, 12), (0, 12), (480, 12),
+                                        (240, 1)])
+def test_spill_counter_counts_the_rule_by_reason(frame, kmax):
+    """Each bin build adds its spills by reason to its device's counter:
+    the culled budget at frame 240 (about 454 of 1,275 valid triangles),
+    nothing at frame 0, a few triangles that are not coverage-safe at
+    frame 480, and with kmax = 1 tile the triangles spanning more bins
+    (render's arguments otherwise)."""
+    ps, rp = _uhd_orbit_setup(frame)
+    w, h, bands = rp.width, rp.height, 4
+    kw = dict(kmax=kmax * bands, budget_factor=0.85, bands=bands)
+    want = _spill_rule(ps, w, h, **kw)
+    tbin.reset_spill_counts("cpu")
+    before = tbin.spill_counts("cpu")
+    info = tbin.build_bins(ps, width=w, height=h, kmax=kmax * bands,
+                           pair_budget_factor=0.85, bands=bands)
+    tbin.build_bins(ps, width=w, height=h, kmax=kmax * bands,
+                    pair_budget_factor=0.85, bands=bands)
+    got = tbin.spill_counts("cpu")
+    assert before == dict(frames=0, budget=0, kmax=0, unsafe=0)
+    assert got == dict(frames=2, **{k: 2 * v for k, v in want.items()})
+    assert sum(want.values()) == int(info.n_overflow)
+    if kmax == 1:
+        assert want["kmax"] > 0
+    elif frame == 240:
+        assert want["budget"] >= 0.25 * int(ps.valid.sum())
+    if frame == 0:
+        assert int(info.n_overflow) == 0
+    if frame == 480:
+        assert want["unsafe"] > 0
+    tbin.reset_spill_counts()
+    assert tbin.spill_counts("cpu")["frames"] == 0
+
+
+def test_spill_counter_reads_nothing_on_the_host(monkeypatch):
+    """A bin build adds to the counter without reading a tensor on the
+    host (on the card, tests/test_torch_cuda.py runs the frame under
+    ``set_sync_debug_mode("error")``)."""
+    ps, rp = _uhd_orbit_setup(240)
+
+    def refuse(*a, **k):
+        raise AssertionError("a host read inside build_bins")
+
+    for name in ("item", "tolist", "numpy", "__bool__", "__int__",
+                 "__float__", "__index__"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    tbin.reset_spill_counts("cpu")
+    info = tbin.build_bins(ps, width=rp.width, height=rp.height, kmax=48,
+                           pair_budget_factor=0.85, bands=4)
+    monkeypatch.undo()
+    assert tbin.spill_counts("cpu")["budget"] == int(info.n_overflow) > 0

@@ -37,7 +37,10 @@ from software_renderer_tpu_torch.ops.shading import Light, shading_params
 from software_renderer_tpu_torch.parallel.batch import render_batch
 from software_renderer_tpu_torch.parallel.sharding import texture_train_step
 from software_renderer_tpu_torch.render import (RenderPass, clip_front,
-                                               clip_inputs, triangle_inputs)
+                                               clip_inputs,
+                                               planar_front_table_of,
+                                               shading_inputs,
+                                               triangle_inputs)
 from software_renderer_tpu_torch.tools import probe_dyngather as probe
 
 PLANE_TOL = 1e-5
@@ -1808,3 +1811,120 @@ def test_capture_layer_map_is_the_same_under_a_profiler(monkeypatch):
     fb = graph(rps[2])
     torch.cuda.synchronize()
     assert fg.routes["replay"] >= 1 and _equal(fb.color, want.color)
+
+
+def _uhd_orbit(frames):
+    """Config 4 at full size (99,936 triangles) in untextured Phong at
+    3840x2160 on the card, and [len(frames), 4, 4] transforms of bench.py's
+    orbit at those frames (frame / 60 s about (1, 1, 0)): the benchmark's
+    ``config4_uhd_phong``. The culled pair budget spills about 12,600 triangles
+    at frame 242 and none at frame 0."""
+    rp = scenes.config4_many_objects(0.0, width=3840, height=2160,
+                                     textured=False, device="cuda")
+    axis = tf.normalize(torch.tensor([1.0, 1.0, 0.0], device="cuda"))
+    ts = torch.stack([rp.transform @ tf.rotation_matrix(
+        tf.quat_from_axis_angle(axis, torch.tensor(f / 60.0, device="cuda")))
+        for f in frames])
+    return rp, ts
+
+
+def test_uhd_spill_kernels_match_plain():
+    """On a 4K Phong frame whose budget spills more than 5,000 triangles,
+    the main path's overflow pass (K3's merge from the clear seed, K4's
+    resolve with no seed) and K2's seeded walk equal their plain versions:
+    ids, coverage and depth bit for bit, planes within PLANE_TOL."""
+    rp, ts = _uhd_orbit([242])
+    rp = dataclasses.replace(rp, transform=ts[0])
+    w, h = rp.width, rp.height
+    ps, (table, a, poison) = planar_front_table_of(rp)
+    chans, _, prm, lit, tex = shading_inputs(rp, with_attrs=False)
+    info = tb.build_bins(ps, width=w, height=h, kmax=4 * tb.KMAX, bands=4,
+                         pair_budget_factor=0.85)
+    n = info.n_overflow
+    assert int(n) >= 5000
+    ov, slots = tb.overflow_ids(info.overflow_mask)
+    ov_rows = tb.gather_stream(table, ov, poison).contiguous()
+    bbox = fe.bbox_table(ps)
+    rec = tb.raster_records(ov_rows, bbox, ov)
+    z0 = torch.full((h, w), float("inf"), device="cuda")
+    i0 = torch.full((h, w), -1, dtype=torch.int32, device="cuda")
+    zk, ik = visibility_merge_kernel(rec, z0, i0, width=w, height=h,
+                                     n_live=n)
+    zp, ip = visibility_merge_plain(rec, z0, i0, width=w, height=h,
+                                    n_live=n)
+    torch.cuda.synchronize()
+    assert int((ik >= 0).sum()) > 1_000_000
+    assert _equal(ik, ip) and _equal(zk, zp)
+    gk = tb.resolve_merge_kernel(ov_rows, ik, None, width=w, height=h,
+                                 n_live=n, slots=slots)
+    gp = tb.resolve_merge_plain(ov_rows, ik, None, width=w, height=h,
+                                n_live=n, slots=slots)
+    torch.cuda.synchronize()
+    won = (ik >= 0).expand(a, h, w)
+    assert float((gk - gp).abs()[won].max()) <= PLANE_TOL
+    rows = tb.gather_stream(table, info.ids, poison).contiguous()
+    kw = dict(width=w, height=h, chans=chans, has_light=lit, has_texture=tex,
+              bands=4, bbox=bbox, seeds=(zk, ik, gk), n_overflow=n)
+    zk2, ik2, ok2 = tb.fused_kernel(rows, info.bin_start, prm, **kw)
+    zp2, ip2, op2 = tb.fused_plain(rows, info.bin_start, prm, **kw)
+    torch.cuda.synchronize()
+    assert _equal(ik2, ip2) and _equal(zk2, zp2)
+    assert float((ok2 - op2).abs().max()) <= PLANE_TOL
+
+
+def test_uhd_replay_equals_eager_and_counts_its_spills():
+    """4K Phong frames replayed from one capture equal the same frames
+    rendered eagerly, bit for bit, with no host sync; and the spill
+    counter counts the replayed frames' spills by reason as it counts the
+    eager frames'."""
+    from software_renderer_tpu_torch.parallel import frame_graph as fg
+    rp, ts = _uhd_orbit([0, 242, 616])
+    rps = [dataclasses.replace(rp, transform=t) for t in ts]
+    graph = fg.FrameGraph()
+    graph(rps[0])
+    eager = []
+    tb.reset_spill_counts("cuda")
+    for r in rps[1:]:
+        fb = render(r)
+        eager.append((fb.color.clone(), fb.depth.clone()))
+    want = tb.spill_counts("cuda")
+    tb.reset_spill_counts("cuda")
+    fg.reset_routes()
+    replayed = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for r in rps[1:]:
+            fb = graph(r)
+            replayed.append((fb.color.clone(), fb.depth.clone()))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = tb.spill_counts("cuda")
+    assert fg.routes["replay"] == 2
+    assert want["frames"] == 2 and want["budget"] > 10_000, want
+    assert got == want
+    for (ce, de), (cr, dr) in zip(eager, replayed):
+        assert _equal(ce, cr) and _equal(de, dr)
+
+
+def test_render_batch_memory_stays_flat_at_uhd(monkeypatch):
+    """50 render_batch calls of the 4K Phong cell's shapes (32 frames at
+    a stride of 22 over the orbit, each call one frame later), from a
+    fresh FrameGraph: one capture, every other frame replayed, and
+    reserved device memory never above its level after the first call
+    by more than that call added."""
+    from software_renderer_tpu_torch.parallel import batch
+    from software_renderer_tpu_torch.parallel import frame_graph as fg
+    monkeypatch.setattr(batch, "_graph", fg.FrameGraph())
+    rp, ts = _uhd_orbit(range(704 + 49))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_reserved()
+    fg.reset_routes()
+    render_batch(rp, ts[0:704:22])
+    first = torch.cuda.memory_reserved()
+    top = first
+    for k in range(1, 50):
+        render_batch(rp, ts[k:k + 704:22])
+        top = max(top, torch.cuda.memory_reserved())
+    torch.cuda.synchronize()
+    assert fg.routes == {"capture": 1, "replay": 32 * 50 - 1, "eager": 0}
+    assert top - first <= first - before, (before, first, top)

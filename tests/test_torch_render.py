@@ -10,7 +10,9 @@ the specular pow amplifies them (the JAX package's own binned-vs-
 reference test uses 1e-3, tests/test_binning.py).
 """
 import dataclasses
+from functools import partial
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -147,3 +149,74 @@ def test_render_rejects_a_batch_of_transforms(backend):
     with pytest.raises(TypeError, match="render_batch"):
         srt.render(dataclasses.replace(
             rp, transform=rp.transform.expand(2, 4, 4)), backend=backend)
+
+
+def test_render_of_a_budget_spill_frame_matches_jax(monkeypatch):
+    """render() of config 4's scene (3000 triangles) in untextured Phong
+    at 3840x2160 under bench.py's orbit frame 240, where the culled pair
+    budget spills 454 of its 1,275 valid triangles to the overflow path
+    (K3's merge, K4's resolve and K2's seeded walk), against the JAX
+    package's reference visibility pass and shading on rows [864, 928),
+    where most of the spilled triangles' winning pixels lie (the JAX
+    reference tests every triangle on every pixel: the whole frame takes
+    it ~45 s). Both sides start from the port's planar setup, so the
+    coverage decisions are one set; ids and coverage are exact, depth
+    within the contraction class, color by the typed tie class (the
+    shading jitted, as JAX's render is)."""
+    from software_renderer_tpu.ops import frontend as jfe
+    from software_renderer_tpu.ops import transforms as jtf
+    from software_renderer_tpu.ops.rasterize_ref import visibility_ref
+    from software_renderer_tpu.ops.shading import shade as jshade
+    from software_renderer_tpu_torch.ops import binning as tbin
+    from software_renderer_tpu_torch.render import planar_front_of
+    rp = jscenes.config4_many_objects(0.0, width=3840, height=2160,
+                                      triangles=3000, textured=False)
+    q = jtf.quat_from_axis_angle(jtf.normalize(jnp.array([1.0, 1.0, 0.0])),
+                                 240 / 60.0)
+    rp = dataclasses.replace(rp, transform=rp.transform
+                             @ jtf.rotation_matrix(q))
+    rt = _port_of(rp)
+    kept = {}
+    fused = tbin.fused_kernel
+
+    def keep(*a, **k):
+        kept["out"] = fused(*a, **k)
+        return kept["out"]
+
+    monkeypatch.setattr(tbin, "fused_kernel", keep)
+    tbin.reset_spill_counts("cpu")
+    fb = srt.render(rt)
+    spilled = tbin.spill_counts("cpu")
+    ps = planar_front_of(rt)
+    assert spilled["frames"] == 1
+    assert spilled["budget"] >= 0.25 * int(ps.valid.sum())
+
+    y0, rows = 864, 64
+    band = slice(y0, y0 + rows)
+    st = jfe.to_setup(jfe.PlanarSetup(**{
+        f.name: jnp.asarray(getattr(ps, f.name).numpy())
+        for f in dataclasses.fields(ps)}))
+    dj, ij = visibility_ref(st, width=rp.width, height=rows, y_start=y0)
+    mesh = rp.mesh
+    cj = jax.jit(partial(jshade, shading="phong", y_start=y0))(
+        st, ij, mesh.triangles(), colors=mesh.colors, normals=mesh.normals,
+        uvs=mesh.uvs, light=rp.light, flat_color=rp.flat_color,
+        normal_matrix=jtf.inverse_transpose_3x3(rp.model[:3, :3]))
+    it = kept["out"][1][band]
+    ov = tbin.build_bins(ps, width=rp.width, height=rp.height, kmax=48,
+                         pair_budget_factor=0.85, bands=4).overflow_mask
+    assert int(ov[it[it >= 0].long()].sum()) > 5000, "no spilled winners"
+    np.testing.assert_array_equal(np.asarray(ij), it.numpy())
+    ct, dt = fb.color[band].numpy(), fb.depth[band].numpy()
+    cj, dj = np.asarray(cj), np.asarray(dj)
+    np.testing.assert_array_equal(cj[..., 3], ct[..., 3])
+    win = it.numpy()
+    cov = win >= 0
+    yy, xx = np.nonzero(cov)
+    yy = yy + y0
+    mag = (np.abs(ps.zx.numpy()[win[cov]] * (xx + 0.5))
+           + np.abs(ps.zy.numpy()[win[cov]] * (yy + 0.5))
+           + np.abs(ps.zc.numpy()[win[cov]]))
+    assert (np.abs(dj[cov].astype(np.float64) - dt[cov])
+            <= 2.0 ** -21 * mag).all()
+    assert_tie_class_equal(cj, ct, dj, dt, atol=1e-3, context="uhd spill")
