@@ -13,7 +13,10 @@ the script exits non-zero without printing a result:
    at config-4 shapes (1920x1080, ~100k triangles): coverage, triangle id
    and depth bit-equal, the front-end's rows and stream table bit-equal,
    shaded planes within PLANE_TOL; each kernel's time by CUDA-graph replay
-   (and of back-to-back calls), the plain version's by CUDA events;
+   (and of back-to-back calls), the plain version's by CUDA events; the
+   texture tail kernel against finish_fused bit for bit, on config 4's
+   frame 0 at 1920x1080 textured and at 3840x2160 untextured, both timed
+   by graph replay, with the launches of two frames through render();
 4. a forced spill (config 2 at 512x512 with kmax=1): the overflow kernels
    and the seeded fused kernel launch, and the frame equals the spill-free
    one;
@@ -187,6 +190,7 @@ from software_renderer_tpu_torch.ops.frontend_kernel import (
 from software_renderer_tpu_torch.ops.rasterize_kernel import (
     _poison_row, visibility_kernel, visibility_merge_kernel,
     visibility_merge_plain, visibility_pallas, visibility_plain)
+from software_renderer_tpu_torch.ops import shading as tsh
 from software_renderer_tpu_torch.ops.shading import fused_output_channels
 from software_renderer_tpu_torch.parallel import frame_graph as fg
 from software_renderer_tpu_torch.parallel.batch import (render_batch,
@@ -1143,6 +1147,75 @@ def phase_texture_kernels(dev):
           flush=True)
     for name in ("sampler", "take_along_axis", "window_lookup"):
         print(f"  {name}: {json.dumps(res[name])}", flush=True)
+    _cuda.reset_launches()
+    return res
+
+
+def tail_bytes(out_cf, tid, out_chans, texture=None):
+    """Bytes the texture tail must move: every pixel's id and RGBA, the
+    output planes of each covered pixel and, on a textured plan (a repeat
+    texture), each quad-table row a covered pixel reads, once."""
+    cov = tid != -1
+    n_cov = int(cov.sum())
+    n_bytes = nbytes(tid) + tid.numel() * 16 + n_cov * out_cf.shape[0] * 4
+    if texture is not None:
+        names = [n for n, _ in out_chans]
+        uv = sum(size for _, size in out_chans[:names.index("uv")])
+        u, v = out_cf[uv], out_cf[uv + 1]
+        th, tw, _ = texture.data.shape
+        xa = torch.remainder(torch.floor(u * tw - 0.5).to(torch.int32), tw)
+        ya = torch.remainder(torch.floor(v * th - 0.5).to(torch.int32), th)
+        rows = torch.unique((ya * tw + xa)[cov]).numel()
+        n_bytes += rows * texture.table.shape[1] * 4
+    return n_bytes, n_cov
+
+
+def phase_tail_kernel(dev):
+    """The texture tail kernel (csrc/tail.cu) against finish_fused, its
+    plain version, on config 4's frame 0 at 1920x1080 (textured
+    Blinn-Phong, the 256x256 repeat checkerboard) and at 3840x2160 in
+    untextured Phong (the 4K cell's plan): bit for bit, times by graph
+    replay, bounds, and the launches of two frames through render()."""
+    res = {}
+    for key, size, textured in (("tail", (1920, 1080), True),
+                                ("tail_uhd", (3840, 2160), False)):
+        rp = scenes.config4_many_objects(0.0, width=size[0], height=size[1],
+                                         textured=textured, device=dev)
+        ps, chans, attrs, prm, has_light, has_texture = triangle_inputs(rp)
+        _, tid, out = tb.fused_pipeline(
+            ps, attrs, prm, width=rp.width, height=rp.height, chans=chans,
+            has_light=has_light, has_texture=has_texture,
+            pair_budget_factor=BUDGET)
+        oc = fused_output_channels(rp.shading, chans, has_light, has_texture)
+        kw = dict(out_chans=oc, light=rp.light, texture=rp.texture)
+        assert tsh.tail_kernel_plan(out, **kw) is not None, oc
+        cov = tid != -1
+        k = tsh.tail_kernel(out, tid, **kw)
+        p = tsh.finish_fused(out, cov, **kw)
+        sync()
+        assert_bit_equal(k.view(torch.int32), p.view(torch.int32),
+                         f"{key} vs finish_fused")
+        n_bytes, n_cov = tail_bytes(out, tid, oc,
+                                    rp.texture if textured else None)
+        _cuda.reset_launches()
+        for i in (0, 100):
+            render(dataclasses.replace(rp, transform=bench_transform(
+                rp.transform, i)))
+        sync()
+        launched = _cuda.launches["tail"]
+        assert launched == 2 and _cuda.launches["fused"] == 2, launched
+        res[key] = dict(
+            max_abs_err=max_err(k, p),
+            ms=graph_ms(lambda: tsh.tail_kernel(out, tid, **kw), 50),
+            plain_ms=graph_ms(lambda: tsh.finish_fused(out, cov, **kw), 10),
+            launches_2_frames=launched,
+            shape=f"{rp.width}x{rp.height}, {n_cov} covered, planes "
+                  f"{[n for n, _ in oc]}"
+                  + (f", texture {tuple(rp.texture.data.shape)} "
+                     f"{rp.texture.wrap}" if textured else ""),
+            **bound(n_bytes, 0))
+        print(f"  {key}: {json.dumps(res[key])}", flush=True)
+        del out, tid, k, p
     _cuda.reset_launches()
     return res
 
@@ -2594,6 +2667,7 @@ def main():
     measure_launch_floor(dev)                                # phase 3
     res = phase_kernels(dev)
     res.update(phase_texture_kernels(dev))
+    res.update(phase_tail_kernel(dev))
     res.update(phase_camera_kernels(dev))
     sync()
     phase_spill(dev)                                         # phase 4
@@ -2657,6 +2731,10 @@ def main():
         "fused_persp_seeded": ("fused_kernel(perspective=True, seeds=...)",
                                "fused.cu",
                                "software_renderer_tpu/ops/binning.py:703"),
+        "tail": ("tail_kernel", "tail.cu",
+                 "software_renderer_tpu/ops/shading.py:301 (XLA)"),
+        "tail_uhd": ("tail_kernel (4K, untextured)", "tail.cu",
+                     "software_renderer_tpu/ops/shading.py:301 (XLA)"),
     }
     # Launches on the path that runs each kernel: the main path for K1-K4,
     # the pallas backend for K3', flat shading for K5,
@@ -2676,6 +2754,9 @@ def main():
     path_launches["fe_persp"] = camera_launches["persp_only"]["fe_persp"]
     for k in ("fused_persp", "fused_persp_seeded"):
         path_launches[k] = camera_launches["clip_persp_0"][k]
+    # The tail kernel's: the main path's at 1080p, two 4K frames' at 4K.
+    path_launches["tail"] = launches["tail"]
+    path_launches["tail_uhd"] = res["tail_uhd"]["launches_2_frames"]
     assert all(n > 0 for n in path_launches.values()), path_launches
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "least_ms", "least_by")

@@ -9,6 +9,15 @@ kernel (csrc/fused.cu) runs per pixel; the kernel evaluates the same
 expressions in the same order, with ``1/sqrt`` (never ``rsqrt``) so that
 the normalisation rounds identically. ``perspective_epilogue`` around it
 is the plain version of the kernel's perspective plan.
+
+The texture tail after the fused kernel (``texture_tail``) is one launch
+of csrc/tail.cu (``tail_kernel``: quad-table sample, combine, mask and
+RGBA store per pixel) on every card frame that needs no gradient,
+untextured or bilinear on sampler route "0" (``tail_kernel_plan``).
+``finish_fused``, its plain version in torch operations, keeps the CPU,
+texture training (the gradient flows through it), trilinear and nearest
+filters and the windowed routes; the kernel's colour equals it bit for
+bit.
 """
 
 from __future__ import annotations
@@ -18,8 +27,10 @@ from typing import Optional
 
 import torch
 
+from .. import _cuda
 from ..device import on_device, or_default
 from ..framebuffer import NO_TRIANGLE
+from . import texture as _texture
 from .resolve import (barycentrics_at_pixels, interpolate_attribute,
                       perspective_correct_weights)
 from .texture import (Texture, sample_texture,
@@ -315,7 +326,9 @@ def perspective_vertex_attrs(attrs, w_corners):
 def finish_fused(out_cf, covered, *, out_chans,
                  light: Optional[Light] = None,
                  texture: Optional[Texture] = None):
-    """Tail after the fused kernel: texture sample + combine + alpha.
+    """Tail after the fused kernel: texture sample + combine + alpha, in
+    torch operations. The plain version of :func:`tail_kernel`, and the
+    tail of every frame :func:`tail_kernel_plan` refuses.
 
     out_cf: [C, H, W] fused epilogue outputs. Returns [H, W, 4] RGBA.
     """
@@ -343,3 +356,111 @@ def finish_fused(out_cf, covered, *, out_chans,
     rgb = [torch.where(covered, p, zero) for p in rgb]
     alpha = torch.where(covered, one, zero)
     return torch.stack(rgb + [alpha], dim=-1)
+
+
+# The fused output plans the tail kernel serves (csrc/tail.cu): the
+# colour planes alone, rgb + uv, and lit + spec + uv -> its plan number.
+TAIL_PLANS = {("final",): 0, ("rgb",): 0, ("rgb", "uv"): 1,
+              ("lit", "spec", "uv"): 2}
+
+
+def tail_kernel_plan(out_cf, out_chans, light: Optional[Light] = None,
+                     texture: Optional[Texture] = None) -> Optional[int]:
+    """The tail kernel's plan for these inputs (:data:`TAIL_PLANS`), or
+    None where :func:`finish_fused`'s torch operations keep the frame:
+    a gradient may be needed (grad mode on and ``out_cf``, the texture's
+    table or the specular it reads requires grad), a channel plan outside
+    :data:`TAIL_PLANS`, or, on a textured plan, a filter other than
+    bilinear, a sampler route other than "0" (``SR_TEX_WINDOWED``: routes
+    "1" and "adaptive" take K7), or a texture of other than 1, 3 or 4
+    channels. The device is the caller's test (:func:`texture_tail`)."""
+    plan = TAIL_PLANS.get(tuple(n for n, _ in out_chans))
+    if plan is None:
+        return None
+    reads = [out_cf]
+    if plan:
+        if (texture is None or texture.filter != "bilinear"
+                or _texture.TEX_WINDOWED != "0"
+                or texture.data.shape[-1] not in (1, 3, 4)):
+            return None
+        reads.append(texture.table)
+    if plan == 2:
+        if light is None:
+            return None
+        reads.append(light.specular)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in reads):
+        return None
+    return plan
+
+
+def tail_kernel(out_cf, tri_id, *, out_chans,
+                light: Optional[Light] = None,
+                texture: Optional[Texture] = None):
+    """The texture tail in one launch (csrc/tail.cu) on CUDA tensors:
+    :func:`finish_fused` of ``out_cf`` and the covered mask ``tri_id !=
+    NO_TRIANGLE``, bit for bit, with no autograd. out_cf: [C, H, W]
+    float32, a plan of :data:`TAIL_PLANS`; tri_id: [H, W] int32. Returns
+    a new [H, W, 4] float32 RGBA. The light's specular is read on the
+    device, so a CUDA graph can capture the launch. CPU tensors run
+    :func:`finish_fused`."""
+    if out_cf.device.type == "cpu":
+        return finish_fused(out_cf, tri_id != NO_TRIANGLE,
+                            out_chans=out_chans, light=light,
+                            texture=texture)
+    dev = out_cf.device
+    plan = TAIL_PLANS.get(tuple(n for n, _ in out_chans))
+    if plan is None:
+        raise ValueError(f"the tail kernel takes the plans {list(TAIL_PLANS)}"
+                         f", got {out_chans}")
+    n_planes = sum(size for _, size in out_chans)
+    _cuda.require(out_cf, torch.float32, "out_cf", ndim=3)
+    if out_cf.shape[0] != n_planes:
+        raise ValueError(f"out_cf must hold {n_planes} planes, got "
+                         f"{out_cf.shape[0]}")
+    h, w = out_cf.shape[1:]
+    if h * w >= 2 ** 31:
+        raise ValueError(f"a {h}x{w} frame has more pixels than an int32")
+    _cuda.require(tri_id, torch.int32, "tri_id", device=dev, shape=(h, w))
+    table = specular = None
+    th = tw = c = repeat = 0
+    if plan:
+        if texture is None or texture.filter != "bilinear":
+            raise ValueError("a textured plan takes a bilinear texture")
+        th, tw, c = texture.data.shape
+        if c not in (1, 3, 4):
+            raise ValueError(f"the texture must have 1, 3 or 4 channels, "
+                             f"got {c}")
+        repeat = int(texture.wrap == "repeat")
+        table = texture.table
+        _cuda.require(table, torch.float32, "texture table", device=dev,
+                      shape=(th * tw, 4 * c), align=16)
+    if plan == 2:
+        specular = light.specular.to(torch.float32).contiguous()
+        _cuda.require(specular, torch.float32, "specular", device=dev,
+                      shape=(3,))
+    out = torch.empty((h, w, 4), dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = _cuda.lib()
+    _cuda.launches["tail"] += 1
+    _cuda.check(lib.sr_tail(
+        out_cf.data_ptr(), tri_id.data_ptr(), h * w, plan, ptr(table), th,
+        tw, c, repeat, ptr(specular), out.data_ptr(), _cuda.sm_count(dev),
+        _cuda.stream_of(out_cf)))
+    return out
+
+
+def texture_tail(out_cf, tri_id, *, out_chans,
+                 light: Optional[Light] = None,
+                 texture: Optional[Texture] = None):
+    """The fused path's texture tail, ``render``'s last layer: [C, H, W]
+    fused outputs and the [H, W] triangle ids -> [H, W, 4] RGBA. On the
+    card, where :func:`tail_kernel_plan` finds a plan (every frame that
+    needs no gradient, on the bilinear route "0" or untextured), one
+    :func:`tail_kernel` launch; everywhere else :func:`finish_fused`."""
+    if (out_cf.device.type == "cuda"
+            and tail_kernel_plan(out_cf, out_chans, light, texture)
+            is not None):
+        return tail_kernel(out_cf, tri_id, out_chans=out_chans, light=light,
+                           texture=texture)
+    return finish_fused(out_cf, tri_id != NO_TRIANGLE, out_chans=out_chans,
+                        light=light, texture=texture)

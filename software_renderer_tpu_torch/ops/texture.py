@@ -3,11 +3,14 @@ and clamp addressing.
 
 Bilinear sampling reads one row of a quad table per pixel: row (y, x)
 holds the 2x2 texel neighbourhood with the wrap mode baked in. That
-sampler is plain torch: in the JAX package it is an XLA stage, not a
-Pallas kernel. The fused path's texture tail routes through
-:func:`sample_texture_planes_compacted`, which takes the windowed
-sampler (ops/texture_kernel.py, K7 on the card) when ``SR_TEX_WINDOWED``
-asks for it. The JAX package's cap-ladder compaction and its
+sampler is plain torch here: in the JAX package it is an XLA stage, not
+a Pallas kernel. On the card the fused path's texture tail samples the
+quad table inside one kernel with its combine (csrc/tail.cu,
+ops/shading.py ``texture_tail``) on every frame that needs no gradient
+on route "0"; training frames, the other filters and the other routes
+take :func:`sample_texture_planes_compacted` in torch, which takes the
+windowed sampler (ops/texture_kernel.py, K7 on the card) when
+``SR_TEX_WINDOWED`` asks for it. The JAX package's cap-ladder compaction and its
 ``TEX_GATHER_SPLIT``/``TEX_TABLE_PACK`` knobs work around the TPU's
 static grid and gather costs and are not ported; the JAX docstring states
 the compacted sampler equals :func:`sample_texture_planes` per covered

@@ -13,8 +13,13 @@ clip to [2T] triangles, the divide, ``ndc_to_screen`` and
 * ``auto`` / ``binned`` (the main path): the front-end writes the stream
   table with the setup (``planar_front_table``), then the banded bin build
   (ops/binning.py), the fused raster + shade kernel (with the overflow
-  merge kernels on spill frames), then the texture sample and combine
-  (ops/shading.py finish_fused). A shading plan with no attribute
+  merge kernels on spill frames), then the texture tail, sample and
+  combine (ops/shading.py ``texture_tail``): on the card one launch of
+  the tail kernel (csrc/tail.cu) on every frame that needs no gradient,
+  untextured or bilinear on sampler route "0"; ``finish_fused``'s torch
+  operations on the CPU, under a gradient (texture training), for
+  trilinear and nearest filters and on routes "1" and "adaptive" (K7).
+  A shading plan with no attribute
   channels (``flat``, or phong without colors and light) takes
   ``binned_pipeline``'s visibility pass and ``shade_gbuffer`` instead.
 * ``pallas``: the record-walking visibility kernel over every triangle
@@ -61,10 +66,9 @@ from .ops.clip import clip_near, compose_attrs, transform_corners_clip
 from .ops.rasterize_kernel import visibility_pallas
 from .ops.rasterize_ref import visibility_ref
 from .ops.setup import triangle_setup_from_corners
-from .ops.shading import (Light, attribute_channels, finish_fused,
-                          fused_output_channels, gather_attribute_values,
-                          perspective_vertex_attrs, shade, shade_gbuffer,
-                          shading_params)
+from .ops.shading import (Light, attribute_channels, fused_output_channels,
+                          gather_attribute_values, perspective_vertex_attrs,
+                          shade, shade_gbuffer, shading_params, texture_tail)
 from .ops.texture import Texture
 from .ops.transforms import inverse_transpose_3x3
 from .ops.vertex import ndc_to_screen, vertex_stage
@@ -494,7 +498,7 @@ def render_triangles(rp: RenderPass, backend: str = "auto",
     with span("sr.texture_tail"):
         out_chans = fused_output_channels(rp.shading, chans, has_light,
                                           has_texture)
-        color = finish_fused(out, tri_id != -1, out_chans=out_chans,
+        color = texture_tail(out, tri_id, out_chans=out_chans,
                              light=rp.light, texture=rp.texture)
     return Framebuffer(color=color, depth=depth)
 

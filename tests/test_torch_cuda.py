@@ -9,8 +9,8 @@ This file imports no JAX, so it runs on a machine with a card and no JAX:
 Ids and depth must be bit-equal (the kernels are built with --fmad=false
 and IEEE division/sqrt, and repeat the plain versions' operations in
 order); shaded planes within 1e-5 (powf may differ from torch.pow by an
-ulp or two). The windowed sampler (K7) and the gather probe (K8) equal
-their plain versions bit for bit.
+ulp or two). The windowed sampler (K7), the gather probe (K8) and the
+texture tail kernel equal their plain versions bit for bit.
 """
 import dataclasses
 import warnings
@@ -1928,3 +1928,188 @@ def test_render_batch_memory_stays_flat_at_uhd(monkeypatch):
     torch.cuda.synchronize()
     assert fg.routes == {"capture": 1, "replay": 32 * 50 - 1, "eager": 0}
     assert top - first <= first - before, (before, first, top)
+
+
+# ---------------------------------------------------------------------------
+# The texture tail kernel (csrc/tail.cu): finish_fused in one launch on
+# every frame that needs no gradient.
+# ---------------------------------------------------------------------------
+
+_TAIL_PLANS = {"lit_spec_uv": [("lit", 3), ("spec", 1), ("uv", 2)],
+               "rgb_uv": [("rgb", 3), ("uv", 2)],
+               "final": [("final", 3)], "rgb": [("rgb", 3)]}
+
+
+def _tail_case(plan, c, wrap, h, w, seed=5):
+    """Fused output planes of ``plan`` on an [h, w] frame with ~30% of
+    its pixels uncovered (their planes hold values the mask must drop),
+    u and v in [-2.5, 3.5) (negative, past 1 and inside), the ids, a
+    random 64x48 texture of ``c`` channels and the default light, on the
+    card."""
+    g = torch.Generator().manual_seed(seed)
+    chans = _TAIL_PLANS[plan]
+    n = sum(s for _, s in chans)
+    out = torch.rand((n, h, w), generator=g)
+    if "uv" in dict(chans):
+        out[-2:] = out[-2:] * 6.0 - 2.5
+    tid = torch.randint(0, 1000, (h, w), generator=g, dtype=torch.int32)
+    tid[torch.rand((h, w), generator=g) < 0.3] = -1
+    tex = ttex.Texture(data=torch.rand((48, 64, c), generator=g).cuda(),
+                       wrap=wrap)
+    return out.cuda(), tid.cuda(), chans, Light.default("cuda"), tex
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+_TAIL_CASES = ([(p, c, wrap, hw) for p in ("lit_spec_uv", "rgb_uv")
+                for c in (1, 3, 4) for wrap in ("repeat", "clamp")
+                for hw in ((1080, 1920), (77, 203))]
+               + [(p, 3, "repeat", hw) for p in ("final", "rgb")
+                  for hw in ((1080, 1920), (77, 203))])
+
+
+@pytest.mark.parametrize("plan,c,wrap,hw", _TAIL_CASES)
+def test_tail_kernel_equals_finish_fused(plan, c, wrap, hw):
+    """The tail kernel's RGBA equals finish_fused's on the same card
+    inputs bit for bit: every plan it serves, textures of 1, 3 and 4
+    channels, both wraps, u and v outside [0, 1], at 1920x1080 and at a
+    width that is a multiple of neither 4 nor 128; one launch."""
+    out, tid, chans, light, tex = _tail_case(plan, c, wrap, *hw)
+    assert tsh.tail_kernel_plan(out, chans, light, tex) is not None
+    _cuda.reset_launches()
+    k = tsh.tail_kernel(out, tid, out_chans=chans, light=light, texture=tex)
+    p = tsh.finish_fused(out, tid != -1, out_chans=chans, light=light,
+                         texture=tex)
+    torch.cuda.synchronize()
+    assert _cuda.launches["tail"] == 1
+    assert k.shape == (*hw, 4) and k.is_contiguous()
+    assert bool((k[..., 3] == (tid != -1).float()).all())
+    assert torch.equal(_bits(k), _bits(p))
+
+
+def _plain_tail(monkeypatch):
+    """Route every frame's texture tail to finish_fused."""
+    monkeypatch.setattr(tsh, "tail_kernel_plan", lambda *a, **kw: None)
+
+
+@pytest.mark.parametrize("case", ["config4", "band", "camera", "phong"])
+def test_tail_kernel_frames_equal_the_torch_tail(case, monkeypatch):
+    """Frames through render/render_rows with the tail kernel equal the
+    same frames with finish_fused's torch tail, bit for bit: config 4 cut
+    down, a band of it (rows [37, 87)), the camera path (clip and
+    perspective-correct attributes, K2 dividing by w) and config 4 in
+    untextured Phong (the 4K cell's plan at a small size); one tail
+    launch a frame, none with the torch tail."""
+    from software_renderer_tpu_torch.render import render_rows
+    if case == "camera":
+        rp = scenes.config4_camera(0.5, width=256, height=144,
+                                   triangles=3000, device="cuda")
+    elif case == "phong":
+        rp = scenes.config4_many_objects(0.0, width=200, height=136,
+                                         triangles=3000, textured=False,
+                                         device="cuda")
+    else:
+        rp = _config4_loop_scene(0.5)
+    fn = ((lambda: render_rows(rp, 37, 50)) if case == "band"
+          else (lambda: render(rp)))
+    _cuda.reset_launches()
+    fb = fn()
+    torch.cuda.synchronize()
+    assert _cuda.launches["tail"] == 1 and _cuda.launches["fused"] == 1
+    assert bool(fb.color[..., 3].any())
+    with monkeypatch.context() as m:
+        _plain_tail(m)
+        _cuda.reset_launches()
+        want = fn()
+        torch.cuda.synchronize()
+        assert _cuda.launches["tail"] == 0
+    assert torch.equal(_bits(fb.color), _bits(want.color))
+    assert _equal(fb.depth, want.depth)
+
+
+def test_tail_kernel_replayed_frames_equal_eager_and_count(monkeypatch):
+    """render_batch captures a frame with the tail kernel and replays it:
+    every frame equals its eager render bit for bit (the eager frames
+    through finish_fused too), and the tail launches once a frame on
+    render, render_batch and FrameLoop, as K2 does."""
+    from software_renderer_tpu_torch.parallel import batch
+    from software_renderer_tpu_torch.parallel import frame_graph as fg
+    from software_renderer_tpu_torch.utils.config import RenderConfig
+    from software_renderer_tpu_torch.utils.display import FrameLoop
+    monkeypatch.setattr(batch, "_graph", fg.FrameGraph())
+    rp = _config4_loop_scene(0.0)
+    ts = torch.stack([_config4_loop_scene(0.5 * i).transform
+                      for i in range(4)])
+    rps = [dataclasses.replace(rp, transform=t) for t in ts]
+    _cuda.reset_launches()
+    eager = [render(r).color for r in rps]
+    torch.cuda.synchronize()
+    assert _cuda.launches["tail"] == 4 and _cuda.launches["fused"] == 4
+    with monkeypatch.context() as m:
+        _plain_tail(m)
+        plain = [render(r).color for r in rps]
+    for _ in range(2):  # the capture's call, then a call of replays only
+        fg.reset_routes()
+        _cuda.reset_launches()
+        got = render_batch(rp, ts)
+        torch.cuda.synchronize()
+        assert fg.routes["eager"] == 0 and fg.routes["replay"] >= 3
+        assert _cuda.launches["tail"] == 4 and _cuda.launches["fused"] == 4
+        for i in range(4):
+            assert torch.equal(_bits(got.color[i]), _bits(eager[i])), i
+            assert torch.equal(_bits(got.color[i]), _bits(plain[i])), i
+    loop = FrameLoop(lambda t: rp, lambda t: _config4_loop_scene(t).transform,
+                     RenderConfig(width=256, height=192, time_step=0.5))
+    _cuda.reset_launches()
+    frames = [loop.frame().color.clone() for _ in range(3)]
+    torch.cuda.synchronize()
+    assert _cuda.launches["tail"] == 3 and _cuda.launches["fused"] == 3
+    for i, f in enumerate(frames):
+        assert torch.equal(_bits(f), _bits(eager[i])), i
+
+
+@pytest.mark.parametrize("case", ["train", "trilinear", "nearest",
+                                  "route1", "adaptive"])
+def test_tail_kernel_is_not_launched_off_its_path(case, monkeypatch):
+    """No tail launch where finish_fused keeps the frame: a texture
+    training step (the gradient flows through the tail), trilinear and
+    nearest filters, and the windowed routes "1" and "adaptive"; K2
+    still launches every frame."""
+    rp = _config4_loop_scene(0.0)
+    _cuda.reset_launches()
+    if case == "train":
+        ts = torch.stack([_config4_loop_scene(0.5 * i).transform
+                          for i in range(2)])
+        targets = torch.rand((2, rp.height, rp.width, 4), device="cuda")
+        texture_train_step(rp.texture.data, rp, ts, targets, lr=5000.0)
+    elif case in ("trilinear", "nearest"):
+        render(dataclasses.replace(rp, texture=ttex.Texture(
+            data=rp.texture.data, filter=case, wrap=rp.texture.wrap)))
+    else:
+        monkeypatch.setattr(ttex, "TEX_WINDOWED",
+                            "1" if case == "route1" else "adaptive")
+        render(rp)
+    torch.cuda.synchronize()
+    assert _cuda.launches["fused"] >= 1
+    assert _cuda.launches["tail"] == 0, dict(_cuda.launches)
+
+
+def test_tail_kernel_raises_on_bad_input():
+    out, tid, chans, light, tex = _tail_case("lit_spec_uv", 3, "repeat",
+                                             16, 24)
+    kw = dict(out_chans=chans, light=light, texture=tex)
+    with pytest.raises(ValueError):
+        tsh.tail_kernel(out[:5], tid, **kw)
+    with pytest.raises(ValueError):
+        tsh.tail_kernel(out, tid[:8], **kw)
+    with pytest.raises(TypeError):
+        tsh.tail_kernel(out, tid.long(), **kw)
+    with pytest.raises(ValueError):
+        tsh.tail_kernel(out, tid, out_chans=[("normal", 3)], light=light,
+                        texture=tex)
+    with pytest.raises(ValueError):
+        tsh.tail_kernel(out, tid, out_chans=chans, light=light,
+                        texture=ttex.Texture(data=tex.data,
+                                             filter="nearest"))

@@ -1,6 +1,9 @@
 """PyTorch port, the texture slice: the windowed sampler's index prep and
 plain version (ops/texture_kernel.py), the routed texture tail
-(``SR_TEX_WINDOWED``), the geometry-gradient contract of ``render``,
+(``SR_TEX_WINDOWED``) and which frames take the tail kernel
+(ops/shading.py ``tail_kernel_plan``; finish_fused, its plain version,
+against the kernel's arithmetic in numpy), the geometry-gradient
+contract of ``render``,
 texture training (parallel/sharding.py) and the gather probe's plain
 versions, against the JAX package.
 
@@ -36,6 +39,7 @@ import software_renderer_tpu_torch as srt
 from software_renderer_tpu_torch import convert
 from software_renderer_tpu_torch.models import scenes as tscenes
 from software_renderer_tpu_torch.ops import frontend as tfe
+from software_renderer_tpu_torch.ops import shading as tsh
 from software_renderer_tpu_torch.ops import texture as ttex
 from software_renderer_tpu_torch.ops import texture_kernel as ttk
 from software_renderer_tpu_torch.ops.rasterize_ref import visibility_ref
@@ -408,3 +412,165 @@ def test_probe_plain_versions_match_numpy():
     np.testing.assert_array_equal(
         probe.window_lookup(tab, y0, ty, tx).numpy(),
         tab.numpy()[ty.numpy(), tx.numpy()])
+
+
+# ---------------------------------------------------------------------------
+# The texture tail: which frames take the tail kernel (csrc/tail.cu) and
+# finish_fused, its plain version, on the CPU.
+# ---------------------------------------------------------------------------
+
+_TAIL_CHANS = {"lit_spec_uv": [("lit", 3), ("spec", 1), ("uv", 2)],
+               "rgb_uv": [("rgb", 3), ("uv", 2)],
+               "final": [("final", 3)], "rgb": [("rgb", 3)]}
+
+
+def _tail_inputs(plan="lit_spec_uv", c=3, wrap="repeat", h=19, w=37,
+                 filter="bilinear", seed=3):
+    """CPU fused output planes of ``plan`` (u and v in [-2.5, 3.5), ~30%
+    of pixels uncovered), the [h, w] ids, the default light and a random
+    24x16 texture of ``c`` channels."""
+    g = torch.Generator().manual_seed(seed)
+    chans = _TAIL_CHANS[plan]
+    out = torch.rand((sum(s for _, s in chans), h, w), generator=g)
+    if "uv" in dict(chans):
+        out[-2:] = out[-2:] * 6.0 - 2.5
+    tid = torch.randint(0, 500, (h, w), generator=g, dtype=torch.int32)
+    tid[torch.rand((h, w), generator=g) < 0.3] = -1
+    tex = ttex.Texture(data=torch.rand((16, 24, c), generator=g),
+                       filter=filter, wrap=wrap)
+    return out, tid, chans, tsh.Light.default("cpu"), tex
+
+
+def _tail_numpy(out, tid, chans, light, tex):
+    """The tail kernel's arithmetic per pixel in numpy float32: x = u * tw
+    - 0.5, floor, fraction, truncation to int32, torch.remainder or
+    clamp, one quad-table row, sample_texture_planes' lerps, colour times
+    texture, plus specular times spec, masked, alpha 1 where covered."""
+    f32 = np.float32
+    names = [n for n, _ in chans]
+    p = out.numpy()
+    rgb = [p[0], p[1], p[2]]
+    if "uv" in names:
+        th, tw, c = tex.data.shape
+        uo = 4 if "spec" in names else 3
+        x = p[uo] * f32(tw) - f32(0.5)
+        y = p[uo + 1] * f32(th) - f32(0.5)
+        x0, y0 = np.floor(x), np.floor(y)
+        fx, fy = x - x0, y - y0
+        xi, yi = x0.astype(np.int32), y0.astype(np.int32)
+        if tex.wrap == "repeat":
+            xa, ya = np.mod(xi, tw), np.mod(yi, th)
+        else:
+            xa, ya = np.clip(xi, 0, tw - 1), np.clip(yi, 0, th - 1)
+        q = tex.table.numpy()[ya * tw + xa]
+        samples = []
+        for ch in range(min(c, 3)):
+            t00, t01 = q[..., ch], q[..., c + ch]
+            t10, t11 = q[..., 2 * c + ch], q[..., 3 * c + ch]
+            top = t00 + (t01 - t00) * fx
+            bot = t10 + (t11 - t10) * fx
+            samples.append(top + (bot - top) * fy)
+        rgb = [rgb[ch] * samples[ch if c > 1 else 0] for ch in range(3)]
+        if "spec" in names:
+            ks = light.specular.numpy()
+            rgb = [rgb[ch] + ks[ch] * p[3] for ch in range(3)]
+    cov = tid.numpy() != -1
+    res = np.zeros(cov.shape + (4,), np.float32)
+    res[cov, :3] = np.stack(rgb, -1)[cov]
+    res[cov, 3] = 1.0
+    return res
+
+
+@pytest.mark.parametrize("plan,c,wrap", [
+    (p, c, wrap) for p in ("lit_spec_uv", "rgb_uv") for c in (1, 3, 4)
+    for wrap in ("repeat", "clamp")] + [("final", 3, "repeat"),
+                                        ("rgb", 3, "repeat")])
+def test_finish_fused_on_cpu_equals_the_tail_arithmetic(plan, c, wrap):
+    """finish_fused on the CPU is what it was: bit for bit the per-pixel
+    arithmetic that the tail kernel repeats (numpy float32, one rounding
+    per operation), on every plan the kernel serves, textures of 1, 3 and
+    4 channels, both wraps and u, v outside [0, 1]; and texture_tail on
+    CPU tensors is finish_fused."""
+    out, tid, chans, light, tex = _tail_inputs(plan, c, wrap)
+    want = _tail_numpy(out, tid, chans, light, tex)
+    got = tsh.finish_fused(out, tid != -1, out_chans=chans, light=light,
+                           texture=tex)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+    routed = tsh.texture_tail(out, tid, out_chans=chans, light=light,
+                              texture=tex)
+    assert torch.equal(routed, got)
+
+
+def _grad_case(what):
+    out, tid, chans, light, tex = _tail_inputs()
+    if what == "out":
+        out.requires_grad_(True)
+    elif what == "texture":
+        tex = ttex.Texture(data=tex.data.clone().requires_grad_(True))
+    else:
+        light = dataclasses.replace(
+            light, specular=light.specular.clone().requires_grad_(True))
+    return out, chans, light, tex
+
+
+@pytest.mark.parametrize("case,want", [
+    ("lit_spec_uv", 2), ("rgb_uv", 1), ("final", 0), ("rgb", 0),
+    ("single_channel", 2), ("four_channels", 2), ("clamp", 2),
+    ("trilinear", None), ("nearest", None), ("route1", None),
+    ("adaptive", None), ("two_channels", None), ("five_channels", None),
+    ("uv_without_texture", None), ("spec_without_light", None),
+    ("other_plan", None), ("grad_out", None), ("grad_texture", None),
+    ("grad_specular", None), ("grad_texture_no_grad_mode", 2)])
+def test_tail_kernel_plan_picks_the_path(case, want, monkeypatch):
+    """tail_kernel_plan sends each frame where it belongs: every plan of
+    TAIL_PLANS on a bilinear texture of 1, 3 or 4 channels, either wrap,
+    route "0", with no gradient needed, to the kernel; other filters,
+    routes, channel counts and plans, and a gradient through the tail's
+    inputs, to finish_fused (under no_grad the gradient is not needed).
+    The plan does not read the device: texture_tail asks for CUDA."""
+    plan = case if case in _TAIL_CHANS else "lit_spec_uv"
+    c = {"single_channel": 1, "four_channels": 4, "two_channels": 2,
+         "five_channels": 5}.get(case, 3)
+    filt = case if case in ("trilinear", "nearest") else "bilinear"
+    out, _, chans, light, tex = _tail_inputs(
+        plan, c, "clamp" if case == "clamp" else "repeat", filter=filt)
+    if case in ("route1", "adaptive"):
+        monkeypatch.setattr(ttex, "TEX_WINDOWED",
+                            "1" if case == "route1" else "adaptive")
+    if case == "uv_without_texture":
+        tex = None
+    if case == "spec_without_light":
+        light = None
+    if case == "other_plan":
+        chans = [("lit", 3), ("uv", 2)]
+    if case.startswith("grad"):
+        out, chans, light, tex = _grad_case(
+            case.split("_")[1] if case != "grad_texture_no_grad_mode"
+            else "texture")
+    if case == "grad_texture_no_grad_mode":
+        with torch.no_grad():
+            assert tsh.tail_kernel_plan(out, chans, light, tex) == want
+        assert tsh.tail_kernel_plan(out, chans, light, tex) is None
+        return
+    assert tsh.tail_kernel_plan(out, chans, light, tex) == want
+
+
+def test_texture_tail_on_cpu_never_launches(monkeypatch):
+    """CPU tensors take finish_fused whatever their plan: texture_tail
+    does not call the kernel's wrapper, and render on the CPU keeps its
+    frame."""
+    def boom(*a, **kw):
+        raise AssertionError("the tail kernel was called on CPU tensors")
+
+    monkeypatch.setattr(tsh, "tail_kernel", boom)
+    out, tid, chans, light, tex = _tail_inputs()
+    assert tsh.tail_kernel_plan(out, chans, light, tex) == 2
+    got = tsh.texture_tail(out, tid, out_chans=chans, light=light,
+                           texture=tex)
+    assert torch.equal(got, tsh.finish_fused(
+        out, tid != -1, out_chans=chans, light=light, texture=tex))
+    rp = tscenes.config2_textured_cube(0.7, width=48, height=40,
+                                       device="cpu")
+    fb = srt.render(rp)
+    assert bool(fb.color[..., 3].any())
