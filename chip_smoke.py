@@ -1,11 +1,19 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (software_renderer_tpu_torch) on
-one NVIDIA GPU.
+"""Each hand-written kernel of the PyTorch/CUDA port
+(software_renderer_tpu_torch) alone on one NVIDIA GPU, against its plain
+PyTorch version and its least time.
 
     python3 chip_smoke.py
 
-Phases, each ending in torch.cuda.synchronize(); any failure raises and
-the script exits non-zero without printing a result:
+Whether the port is right on the card is the card tests' question
+(``python -m pytest --noconftest -q tests/test_torch_cuda.py``), and how
+fast its frames, calls and steps run end to end is the benchmark's
+(BENCHMARK.json, benchmark/). This script answers what neither does: how
+far each kernel, alone at the main path's shapes, is from the least time
+the card could take.
+
+Phases; any failure raises and the script exits non-zero without
+printing a result:
 
 1. the card's name and power limit (nvidia-smi);
 2. build every kernel of the render path from csrc/ (nvcc, at first use);
@@ -16,111 +24,14 @@ the script exits non-zero without printing a result:
    (and of back-to-back calls), the plain version's by CUDA events; the
    texture tail kernel against finish_fused bit for bit, on config 4's
    frame 0 at 1920x1080 textured and at 3840x2160 untextured, both timed
-   by graph replay, with the launches of two frames through render();
-4. a forced spill (config 2 at 512x512 with kmax=1): the overflow kernels
-   and the seeded fused kernel launch, and the frame equals the spill-free
-   one;
-5. the main path: launch counters reset, then 8 frames of the config-4
-   animation (bench.py's transform; frames 120, 240 and 600 spill, so the
-   overflow kernels run on the path too) through render(); counters,
-   coverage, finiteness and ms/frame from CUDA events; device ms and
-   device kernels per frame from a profile of the same frames;
-6. the same small scene rendered on the card and on the CPU (plain
-   versions) with the auto, reference and pallas backends: alpha and
-   depth bit-equal, color within 1e-3;
-7. the other backends at config 4's full size on the frames that spill
-   (0, 120, 240, 600): render(backend="pallas"), render(backend="binned"),
-   flat shading (binned_pipeline without attributes) and
-   binned_pipeline(ps, attrs), each with the counters reset just before
-   it and read just after; ms/frame of each (CUDA events; device
-   ms/frame from a profile); (depth, id) bit-equal across
-   the record walk (K3'), the binned pass (K5, K3 on spills) and the fused
-   path (K2); on the frame with the most spills, binned_pipeline's
-   G-buffer bit-equal to K6's planes with the plain K4 applied on the
-   inputs of the pipeline's own K4 call, and K4 timed on them in place
-   against the out-of-place form;
-8. the texture tail's routes: the 8 main-path frames through render()
-   under SR_TEX_WINDOWED "0", "1" and "adaptive" (counters reset per
-   mode); in "1" the windowed sampler (K7) launches once per frame and
-   every frame equals mode "0"'s in alpha and depth bit for bit; a
-   profile of each mode's 8 frames splits device (kernel) time from host
-   time;
-9. texture training at full size: config 4 at 1920x1080, 4 frames of the
-   animation, targets from render_batch with the true texture, 5 steps of
-   texture_train_step from a flat 0.5 texture in modes "0" and "1"; the
-   loss falls at every step, K7 launches 4 times a step in "1", and the
-   two modes' first steps agree;
-10. the gather probe (K8) through its entry point, with the counters
-   reset just before it;
-11. the camera path at full size: config 4 (99,936 triangles, 1920x1080)
-   under a perspective camera inside the object cloud
-   (``scenes.config4_camera``) at t = 0, 0.5, 1, 1.5, 2 s, each frame with
-   over 1,000 triangles across the eye plane, through render() with (a)
-   clip_near + perspective_correct on ``auto`` in SR_TEX_WINDOWED "0"
-   and "1", (b) perspective_correct alone (K1's perspective flag), (c)
-   clip + perspective on ``pallas``, (d) clip + flat shading (K5), each
-   with the counters reset just before it and read just after; per frame
-   the straddling and clipped triangles, the bins' pairs and spills; per
-   path ms/frame (CUDA events) and device ms and kernels per frame (a
-   profile); (depth, id) bit-equal across K2 and K3' on every frame,
-   every color finite, and the case-0 no-op: config 4's own frame
-   (every corner in front) with and without the clip bit for bit;
-12. the rest of the public surface at config 4's full width, each path
-   with the counters reset just before it and read just after (K1 and K2
-   must launch on each triangle path): (a) the 8 main-path frames with a
-   trilinear texture on auto (alpha and depth equal to the bilinear
-   frames', colors finite) and frame 0 on pallas, card vs CPU at phase
-   6's size, the trilinear tail's device time against mode "0"'s; (b)
-   render_rows of frames 0 and 120 in four 270-row bands and rows
-   [37, 240) on auto and pallas, frame 0 flat (K5): alpha and ids equal
-   the full frame's, depth and color in the JAX package's tie class, and
-   whether bit for bit; (c) render_msaa x2 (3840x2160 inside) of frames
-   0 and 120: depth the 2x2 min and color the box of the 4K frame, card
-   vs CPU at small size; (d) the wireframe cube at 8 times, config 4's
-   first 16,384 indices as lines and its 299,808 vertices as points, card
-   frames equal to the CPU's bit for bit; (e) every pixel format, resize
-   to 1280x720 and 3840x2160 and the 2D primitives, card vs CPU;
-13. the host surface at config 4's full width, each part with the
-   counters reset just before it and read just after (K1 and K2 must
-   launch on each): (a) FrameLoop over 16 frames of bench.py's animation
-   with the PNG sink (native runtime, which must have built), the live
-   viewer (PresentServer on 127.0.0.1, its /frame.png fetched over HTTP)
-   and no sink, each decoded frame equal to to_rgba8 of the card frame
-   bit for bit, FPS and ms/frame of each, and one frame's PNG encode
-   native vs Python; (b) render_batch_chunked of 16 frames (vmap_chunk
-   4) equal to render_batch bit for bit, with the peak memory of each;
-   (c) render_sharded of the 8 main-path frames on make_mesh(2, 4) of
-   the one card with the split front-end on and off and on
-   make_mesh(1, 1): alpha and ids equal to render_batch's, depth and
-   color in the tie class (and whether bit for bit), the gathered
-   front-end and stream table equal to the unsplit K1 launch's bit for
-   bit, ms/frame of each;
-   (d) one texture_train_step in mode "1" on make_mesh(2, 2) against
-   mesh=None (loss within rel 1e-5, texels within 1e-5); (e) config 3
-   from the teapot generator at 1024x1024, card vs CPU at phase 6's
-   size; (f) profiling.trace around two main-path frames, the Chrome
-   trace holding the program's spans (sr.render and its layers) and
-   K2's launches; (g) bench_frame of
-   the main path (20 iterations) beside phase 5's ms/frame;
-14. the compiled frame, config 4 at 1920x1080: (a) host syncs per frame
-   of the eager routes under torch.cuda.set_sync_debug_mode (counted in
-   "warn" mode, then run again in "error" mode): the main path's 8
-   frames in modes "0" and "1", flat shading and binned_pipeline with
-   attributes, the camera path (clip + perspective) in both modes,
-   render_rows bands and render_sharded; 0 on each, and at most the one
-   predicate read of
-   "adaptive"; (b) render_batch of the 8 main-path frames, captured on
-   frame 0 and replayed on the rest (spill frames 120, 240 and 600
-   included), in modes "0" and "1": alpha, depth and color bit-equal to
-   the eager frames and the launch counters equal to theirs; the main
-   path's geometry captured on frame 0 and replayed: ids, depth and
-   planes bit-equal; (c) FrameLoop with a transform_fn and render_batch
-   of camera frames replay bit for bit; (d) the eager route (the
-   "adaptive" sampler, a texture that requires grad) counted; (e)
-   ms/frame eager against replayed (CUDA events and the host clock, in
-   turns) with device ms and kernels per frame of each (profiled), in
-   modes "0" and "1"; (f) the peak memory of render_batch with the graph
-   against the same 16 frames rendered eagerly.
+   by graph replay; then the launches of each kernel on its path, one
+   untimed frame per path with the counters reset before it: the main
+   path on config 4's frame SPILL_FRAME (K1-K4 and the tail), the pallas
+   backend (K3'), flat shading (K5), binned_pipeline with attributes
+   (K6), SR_TEX_WINDOWED route "1" (K7), the gather probe (K8),
+   config4_camera at t = 0 with perspective-correct attributes alone
+   (K1's flag) and with the clip (K2's perspective plan, static and
+   seeded), and config 4 at 3840x2160 untextured (the 4K tail).
 
 Phase 3 runs K2, K3 and K4 as the main path calls them: K2 seeded with
 the frame's overflow count, which must equal the static walk bit for
@@ -141,18 +52,20 @@ previous design's (EARLIER_MS).
 
 Each kernel's bound is the larger of the bytes it must move over the
 card's memory rate and the float32 operations this run's data needs over
-the card's float32 rate (NVIDIA's H100 SXM data sheet, at 700 W); its
-least time (``least_ms``) also counts the launch floor, a one-element
-torch add by CUDA-graph replay measured before phase 3 builds any
-kernel's inputs. K4's bound counts what the function moves: every
-pixel's id, and per live winner its slot and its plane writes, and the
-winning rows' planes; at a count of 0 it moves nothing, so its least
-time is the launch floor. Phase 3 times K4 on the kmax=1 spill, at a
-count of 0 and at 9 channels on the camera spill; phase 7 holds
-binned_pipeline's G-buffer against K6's planes with the plain K4 applied
-on the inputs of the pipeline's own K4 call, and times K4 on them in
-place against the out-of-place form. The last lines are the card line, one JSON line describing the
-kernels, and {"ok": true, "device": {...}}. Imports nothing of JAX.
+the card's float32 rate (the benchmark's peaks, benchmark/benchlib/
+peaks.py: NVIDIA's H100 SXM data sheet, at 700 W); its least time
+(``least_ms``) also counts the launch floor, a one-element torch add by
+CUDA-graph replay measured before phase 3 builds any kernel's inputs.
+K4's bound counts what the function moves: every pixel's id, and per
+live winner its slot and its plane writes, and the winning rows' planes;
+at a count of 0 it moves nothing, so its least time is the launch floor.
+Phase 3 times K4 on the kmax=1 spill, at a count of 0 and at 9 channels
+on the camera spill, and holds binned_pipeline's G-buffer on frame
+SPILL_FRAME against K6's planes with the plain K4 applied on the inputs
+of the pipeline's own K4 call, timing K4 on them in place against the
+out-of-place form. The last lines are the card line, one JSON line
+describing the kernels, and {"ok": true, "device": {...}}. Imports
+nothing of JAX.
 """
 
 import dataclasses
@@ -161,71 +74,42 @@ import math
 import os
 import subprocess
 import sys
-import tempfile
 import time
-import urllib.request
-import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from software_renderer_tpu_torch import (PIXEL_FORMATS, _cuda,
-                                         decode_pixels, encode_pixels,
-                                         render, render_msaa, render_rows,
-                                         runtime, to_rgba8)
+from software_renderer_tpu_torch import _cuda, render
 from software_renderer_tpu_torch.models import scenes
-from software_renderer_tpu_torch.models.mesh import Mesh
-from software_renderer_tpu_torch.ops import primitives2d as p2
-from software_renderer_tpu_torch.ops.msaa import downsample_box
-from software_renderer_tpu_torch.ops.resize import (resize_bilinear,
-                                                    resize_nearest)
 from software_renderer_tpu_torch.ops import binning as tb
-from software_renderer_tpu_torch.ops import clip as tclip
 from software_renderer_tpu_torch.ops import frontend as fe
 from software_renderer_tpu_torch.ops import texture as ttex
 from software_renderer_tpu_torch.ops import texture_kernel as ttk
 from software_renderer_tpu_torch.ops import transforms as tf
 from software_renderer_tpu_torch.ops.frontend_kernel import (
-    fe_kernel, fe_plain, fe_table_kernel, fe_table_plain)
+    fe_kernel, fe_table_kernel, fe_table_plain)
 from software_renderer_tpu_torch.ops.rasterize_kernel import (
     _poison_row, visibility_kernel, visibility_merge_kernel,
-    visibility_merge_plain, visibility_pallas, visibility_plain)
+    visibility_merge_plain, visibility_plain)
 from software_renderer_tpu_torch.ops import shading as tsh
 from software_renderer_tpu_torch.ops.shading import fused_output_channels
-from software_renderer_tpu_torch.parallel import frame_graph as fg
-from software_renderer_tpu_torch.parallel.batch import (render_batch,
-                                                       render_batch_chunked)
-from software_renderer_tpu_torch.parallel.sharding import (
-    make_mesh, render_sharded, sharded_front, texture_train_step)
-from software_renderer_tpu_torch.render import (_pad_cols, clip_inputs,
-                                               planar_front_of,
+from software_renderer_tpu_torch.render import (clip_inputs,
                                                planar_front_table_of,
-                                               shading_inputs,
                                                triangle_inputs)
 from software_renderer_tpu_torch.tools import probe_dyngather as probe
 from software_renderer_tpu_torch.tools.probe_dyngather import graph_ms
 from software_renderer_tpu_torch.tools.sweep_binned import percentiles
-from software_renderer_tpu_torch.utils import image_io, profiling
-from software_renderer_tpu_torch.utils.config import RenderConfig
-from software_renderer_tpu_torch.utils.display import FrameLoop
-from software_renderer_tpu_torch.utils.present import PresentServer
-from software_renderer_tpu_torch.utils.timing import bench_frame
+
+# The card's peaks, as the benchmark's rooflines take them (benchmark/
+# is found as its own run.py finds it: not a package of this checkout).
+sys.path.append(str(Path(__file__).resolve().parent / "benchmark"))
+from benchlib.peaks import F32_OPS_PER_S, HBM_BYTES_PER_S  # noqa: E402
 
 # Shaded planes (kernel vs plain on the same card): both round every
 # operation the same way; only powf may differ from torch.pow by an ulp
 # or two, amplified at most by the color range 0..1.
 PLANE_TOL = 1e-5
-MAIN_FRAMES = (0, 100, 120, 240, 300, 400, 600, 700)
-BACKEND_FRAMES = (0, 120, 240, 600)
-TRAIN_FRAMES = (0, 100, 120, 240)
-TRAIN_STEPS = 5
-# Training step size at 1080p: the loss is a mean over B*H*W*4 entries,
-# so a texel's gradient is of order 1e-7; this moves texels by a few
-# hundredths per step, far below the step that would overshoot.
-TRAIN_LR = 1e5
-# The two modes' first-step textures differ only by the gradient's
-# index-add order (atomics), scaled by TRAIN_LR.
-TRAIN_TOL = 1e-5
 # grid_sample against K7 on the clamp variant: both compute clamp-to-edge
 # bilinear at x = u * tw - 0.5; grid_sample rounds its coordinate another
 # way (((2u - 1) + 1) * tw - 1) / 2.
@@ -239,7 +123,7 @@ BUDGET = 0.85
 # lookup that staged an [8, 256] window per segment (K8), the bin walk
 # that tested every record of a bin on every pixel of its slab (K2 static,
 # K5), the front-end that wrote the 24 rows alone, one 256-thread block
-# per 256 triangles (K1, by graph replay, tools/profile_frames.py), and
+# per 256 triangles (K1, by graph replay), and
 # the sampler that ran one thread per lane on planar tables (K7), and the
 # overflow resolve that binary-searched each pixel's id among the rows'
 # ids on a grid of one thread per pixel (K4: the kmax=1 spill, a count of
@@ -252,10 +136,6 @@ EARLIER_MS = {"visibility_merge": 10.59, "visibility": 69.68,
               "fe": 0.00593, "sampler": 0.0241, "resolve_merge": 0.0142,
               "resolve_merge_count0": 0.0061, "resolve_merge_camera": 0.0104}
 
-# Peak rates of one H100 SXM (NVIDIA's data sheet, 700 W): float32
-# outside the tensor cores, and HBM3.
-F32_OPS_PER_S = 67e12
-HBM_BYTES_PER_S = 3.35e12
 # Float32 operations per (pixel, record) test: two edge functions and the
 # depth plane (2 mul + 2 add each), e2 (2 sub), three edge compares and
 # the depth compare; the record walks' bbox clamp adds 4 compares and
@@ -274,31 +154,9 @@ OPS_FE_CHANNEL = 18
 # Per texture channel and lane in the bilinear lerp: three subtractions,
 # three multiplications, three additions.
 OPS_LERP = 9
-# The camera path (phase 11): config 4 under scenes.config4_camera at
-# these times (s); every frame has over 1,000 straddling triangles.
-CAMERA_TIMES = (0.0, 0.5, 1.0, 1.5, 2.0)
-MIN_STRADDLERS = 500
-# Phase 12, the rest of the public surface at full width: render_rows'
-# bands of config 4 at 1080p (four of 270 rows, and a ragged one) on the
-# frames below, render_msaa x2 on these frames, the wireframe cube at
-# these times, config 4's first LINE_INDICES indices as lines, and
-# resize targets.
-ROW_BANDS = ((0, 270), (270, 270), (540, 270), (810, 270))
-RAGGED_BAND = (37, 203)
-ROW_FRAMES = (0, 120)
-MSAA_FRAMES = (0, 120)
-CUBE_TIMES = tuple(0.25 * i for i in range(8))
-LINE_INDICES = 16_384
-RESIZE_SIZES = ((720, 1280), (2160, 3840))
-# Resize card vs CPU: one einsum in float32 whose summation order the two
-# libraries choose.
-RESIZE_TOL = 1e-5
-# Phase 13: frames through FrameLoop (each sink) and the chunked batch,
-# render_batch_chunked's group size, bench_frame's timed iterations.
-LOOP_FRAMES = 16
-CHUNK_FRAMES = 16
-VMAP_CHUNK = 4
-BENCH_ITERS = 20
+# The orbit frame (bench.py's transform) whose main path the launch
+# counts and binned_pipeline's K4 row run: it spills at 1920x1080.
+SPILL_FRAME = 120
 
 
 def sync():
@@ -789,180 +647,12 @@ def phase_kernels(dev):
     return res
 
 
-def phase_spill(dev):
-    """config 2 at 512x512 with kmax=1 vs the default: the overflow
-    kernels and the seeded fused kernel run, and the frames are equal."""
-    rp = scenes.config2_textured_cube(0.7, device=dev)
-    ps, chans, attrs, prm, _, _ = triangle_inputs(rp)
-    kw = dict(width=rp.width, height=rp.height, chans=chans, has_light=True,
-              has_texture=True, pair_budget_factor=0.85)
-    d0, i0, o0 = tb.fused_pipeline(ps, attrs, prm, **kw)
-    sync()
-    _cuda.reset_launches()
-    d1, i1, o1 = tb.fused_pipeline(ps, attrs, prm, kmax=1, **kw)
-    sync()
-    counts = dict(_cuda.launches)
-    print(f"spill scene (config2 512x512, kmax=1) launches: "
-          f"{json.dumps(counts)}", flush=True)
-    for k in ("visibility_merge", "resolve_merge", "fused_seeded"):
-        assert counts[k] > 0, f"{k} did not launch on the spill scene"
-    assert bool((i0 >= 0).any())
-    assert_bit_equal(i0, i1, "spill ids")
-    assert_bit_equal(d0, d1, "spill depth")
-    err = max_err(o0, o1)
-    assert err <= PLANE_TOL, f"spill planes differ by {err}"
-    print(f"spill frame equals the spill-free frame (planes max |d| {err})",
-          flush=True)
-
-
-def phase_main(dev, card):
-    """The main path: render() of config-4 frames at 1920x1080."""
-
-    rp = scenes.config4_many_objects(0.0, device=dev)
-    n_tri = rp.mesh.indices.numel() // 3
-    render(rp)  # warm-up (allocator, first launches)
-    sync()
-    passes = [dataclasses.replace(rp, transform=bench_transform(
-        rp.transform, i)) for i in MAIN_FRAMES]
-    _cuda.reset_launches()
-    times, cov, finite = [], [], True
-    for p in passes:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fb = render(p)
-        end.record()
-        sync()
-        times.append(start.elapsed_time(end))
-        assert fb.color.shape == (rp.height, rp.width, 4)
-        assert fb.depth.shape == (rp.height, rp.width)
-        finite = finite and bool(torch.isfinite(fb.color).all())
-        cov.append(float(fb.color[..., 3].mean()))
-    launches = dict(_cuda.launches)
-    print(f"main path: {len(passes)} frames of config4 {rp.width}x"
-          f"{rp.height}, T={n_tri}, frames {list(MAIN_FRAMES)}", flush=True)
-    print(f"  launches: {json.dumps(launches)}", flush=True)
-    print(f"  coverage per frame: {cov}", flush=True)
-    print(f"  finite: {finite}", flush=True)
-    print(f"  ms/frame (CUDA events, {card}): {times}; mean "
-          f"{sum(times) / len(times)}", flush=True)
-    dev_ms, n_kernels, n_copies = top_device_ops(
-        lambda: [render(p) for p in passes], f"{len(passes)} main-path frames")
-    print(f"  device ms/frame (profiled kernels, {card}): "
-          f"{dev_ms / len(passes)}; device kernels/frame "
-          f"{n_kernels / len(passes)}, copies and memsets/frame "
-          f"{n_copies / len(passes)}", flush=True)
-    assert finite, "non-finite color"
-    assert all(c > 0 for c in cov), "a frame covered nothing"
-    for k in ("fe", "fused", "visibility_merge", "resolve_merge",
-              "fused_seeded"):
-        assert launches[k] > 0, f"kernel {k} never launched on the main path"
-    return launches, sum(times) / len(times)
-
-
-def phase_small_reference(dev):
-    """The same small scene on the card and on the CPU (plain versions),
-    through each backend that runs at this size."""
-    rp_c = scenes.config4_many_objects(0.3, width=320, height=192,
-                                       triangles=3000, device="cpu")
-    for backend in ("auto", "reference", "pallas"):
-        fb_c = render(rp_c, backend=backend)
-        fb_g = render(rp_c.to(dev), backend=backend)
-        sync()
-        cg, dg = fb_g.color.cpu(), fb_g.depth.cpu()
-        what = f"small {backend}"
-        assert_bit_equal(cg[..., 3], fb_c.color[..., 3], f"{what}: alpha")
-        assert_bit_equal(dg, fb_c.depth, f"{what}: depth")
-        err = max_err(cg, fb_c.color)
-        assert err <= 1e-3, f"{what}: color differs by {err}"
-        print(f"small scene (config4 3000 tris 320x192, {backend}): card == "
-              f"CPU plain, coverage {float(cg[..., 3].mean())}, color max "
-              f"|d| {err}", flush=True)
-
-
-def phase_backends(dev, card):
-    """The other backends at config 4's full size on the frames that
-    spill. Each path runs with the counters reset just before it and read
-    just after; then (depth, id) must agree bit for bit across the record
-    walk, the binned pass and the fused path on every frame."""
-    rp = scenes.config4_many_objects(0.0, device=dev)
-    w, h = rp.width, rp.height
-    passes = [dataclasses.replace(rp, transform=bench_transform(
-        rp.transform, i)) for i in BACKEND_FRAMES]
-
-    def gbuffer(p):
-        ps, _, attrs, _, _, _ = triangle_inputs(p)
-        return tb.binned_pipeline(ps, attrs, width=w, height=h,
-                                  pair_budget_factor=BUDGET)
-
-    paths = {
-        "pallas": lambda p: render(p, backend="pallas"),
-        "binned": lambda p: render(p, backend="binned"),
-        "flat": lambda p: render(dataclasses.replace(p, shading="flat")),
-        "binned_pipeline": gbuffer,
-    }
-    launches, ms = {}, {}
-    for name, fn in paths.items():
-        fn(passes[0])  # warm-up
-        sync()
-        _cuda.reset_launches()
-        times = []
-        for p in passes:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(p)
-            end.record()
-            sync()
-            times.append(start.elapsed_time(end))
-            color = out.color if name != "binned_pipeline" else out[2]
-            assert bool(torch.isfinite(color).all()), f"{name}: non-finite"
-        launches[name] = dict(_cuda.launches)
-        ms[name] = times
-        print(f"backend {name}: frames {list(BACKEND_FRAMES)}, launches "
-              f"{json.dumps(launches[name])}", flush=True)
-        print(f"  ms/frame (CUDA events, {card}): {times}; mean "
-              f"{sum(times) / len(times)}", flush=True)
-        dev_ms, n_kernels, _ = top_device_ops(
-            lambda: [fn(p) for p in passes], f"{len(passes)} {name} frames")
-        print(f"  device ms/frame (profiled kernels, {card}): "
-              f"{dev_ms / len(passes)}; device kernels/frame "
-              f"{n_kernels / len(passes)}", flush=True)
-    need = {"pallas": ("fe", "visibility"),
-            "binned": ("fe", "fused", "visibility_merge", "resolve_merge"),
-            "flat": ("fe", "binned_vis"),
-            "binned_pipeline": ("binned_vis", "resolve")}
-    for name, kernels in need.items():
-        for k in kernels:
-            assert launches[name][k] > 0, f"{k} never launched on {name}"
-    assert launches["pallas"]["fused"] == 0
-    assert launches["flat"]["fused"] == 0
-
-    for i, p in zip(BACKEND_FRAMES, passes):
-        ps, chans, attrs, prm, has_light, has_texture = triangle_inputs(p)
-        d3, i3 = visibility_pallas(fe.to_setup(ps), width=w, height=h)
-        d5, i5 = tb.visibility_binned(ps, width=w, height=h,
-                                      pair_budget_factor=BUDGET)
-        d2, i2, _ = tb.fused_pipeline(
-            ps, attrs, prm, width=w, height=h, chans=chans,
-            has_light=has_light, has_texture=has_texture,
-            pair_budget_factor=BUDGET)
-        sync()
-        for what, d, ids in (("binned", d5, i5), ("fused", d2, i2)):
-            assert_bit_equal(ids, i3, f"frame {i}: {what} vs pallas ids")
-            assert_bit_equal(d, d3, f"frame {i}: {what} vs pallas depth")
-        print(f"frame {i}: (depth, id) equal across K3', K5 + K3 and K2; "
-              f"coverage {float((i3 >= 0).float().mean())}", flush=True)
-    return launches, ms, binned_pipeline_k4(passes, w, h)
-
-
-def binned_pipeline_k4(passes, w, h):
+def binned_pipeline_k4(p):
     """K4 as binned_pipeline launches it, on its own inputs: the pipeline
-    runs on each frame of ``passes`` (and with kmax=1 on the first frame
-    if none spills) with its K4 call recorded; on the frame with the most
-    spills its G-buffer must equal K6's planes with the plain K4 applied
-    in place on the recorded inputs, bit for bit, and K4 is timed in
-    place on them against the out-of-place form (the wrapper's clone of
+    runs on the pass ``p`` (with kmax=1 if it does not spill) with its K4
+    call recorded; its G-buffer must equal K6's planes with the plain K4
+    applied in place on the recorded inputs, bit for bit, and K4 is timed
+    in place on them against the out-of-place form (the wrapper's clone of
     the seed, then the same launch)."""
     calls = []
     kernel = tb.resolve_merge_kernel
@@ -971,22 +661,22 @@ def binned_pipeline_k4(passes, w, h):
         calls.append((rows, tid, gb_in.clone(), kw))
         return kernel(rows, tid, gb_in, **kw)
 
-    def run(p, kmax=tb.KMAX):
+    def run(kmax=tb.KMAX):
         ps, _, attrs, _, _, _ = triangle_inputs(p)
         calls.clear()
         tb.resolve_merge_kernel = record
         try:
-            out = tb.binned_pipeline(ps, attrs, width=w, height=h, kmax=kmax,
+            out = tb.binned_pipeline(ps, attrs, width=p.width,
+                                     height=p.height, kmax=kmax,
                                      pair_budget_factor=BUDGET)
         finally:
             tb.resolve_merge_kernel = kernel
         (call,) = calls
         return int(call[3]["n_live"]), kmax, out, call
 
-    n_ov, kmax, out, call = max((run(p) for p in passes),
-                                key=lambda f: f[0])
+    n_ov, kmax, out, call = run()
     if n_ov == 0:
-        n_ov, kmax, out, call = run(passes[0], kmax=1)
+        n_ov, kmax, out, call = run(kmax=1)
     assert n_ov > 0, "no binned_pipeline frame spills"
     ov_rows, tid, g6, k4 = call
     assert k4.pop("inplace"), "binned_pipeline's K4 copies its seed"
@@ -1175,7 +865,7 @@ def phase_tail_kernel(dev):
     plain version, on config 4's frame 0 at 1920x1080 (textured
     Blinn-Phong, the 256x256 repeat checkerboard) and at 3840x2160 in
     untextured Phong (the 4K cell's plan): bit for bit, times by graph
-    replay, bounds, and the launches of two frames through render()."""
+    replay and bounds."""
     res = {}
     for key, size, textured in (("tail", (1920, 1080), True),
                                 ("tail_uhd", (3840, 2160), False)):
@@ -1197,18 +887,10 @@ def phase_tail_kernel(dev):
                          f"{key} vs finish_fused")
         n_bytes, n_cov = tail_bytes(out, tid, oc,
                                     rp.texture if textured else None)
-        _cuda.reset_launches()
-        for i in (0, 100):
-            render(dataclasses.replace(rp, transform=bench_transform(
-                rp.transform, i)))
-        sync()
-        launched = _cuda.launches["tail"]
-        assert launched == 2 and _cuda.launches["fused"] == 2, launched
         res[key] = dict(
             max_abs_err=max_err(k, p),
             ms=graph_ms(lambda: tsh.tail_kernel(out, tid, **kw), 50),
             plain_ms=graph_ms(lambda: tsh.finish_fused(out, cov, **kw), 10),
-            launches_2_frames=launched,
             shape=f"{rp.width}x{rp.height}, {n_cov} covered, planes "
                   f"{[n for n, _ in oc]}"
                   + (f", texture {tuple(rp.texture.data.shape)} "
@@ -1218,176 +900,6 @@ def phase_tail_kernel(dev):
         del out, tid, k, p
     _cuda.reset_launches()
     return res
-
-
-def phase_windowed_modes(dev, card):
-    """The 8 main-path frames through render() under each sampler route,
-    counters reset per mode; mode "1" launches K7 once a frame and gives
-    mode "0"'s frames in alpha and depth bit for bit."""
-    rp = scenes.config4_many_objects(0.0, device=dev)
-    passes = [dataclasses.replace(rp, transform=bench_transform(
-        rp.transform, i)) for i in MAIN_FRAMES]
-    frames, launches, ms = {}, {}, {}
-    # The profiler's first start takes seconds (CUPTI set-up): start it
-    # once before the profiled frames, so their host clocks compare.
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]):
-        sync()
-    for mode in ("0", "1", "adaptive"):
-        ttex.TEX_WINDOWED = mode
-        render(passes[0])  # warm-up
-        sync()
-        _cuda.reset_launches()
-        times, host, fbs = [], [], []
-        for p in passes:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            t0 = time.perf_counter()
-            start.record()
-            fbs.append(render(p))
-            end.record()
-            sync()
-            host.append((time.perf_counter() - t0) * 1e3)
-            times.append(start.elapsed_time(end))
-        launches[mode] = dict(_cuda.launches)
-        frames[mode], ms[mode] = fbs, times
-        print(f"SR_TEX_WINDOWED={mode}: {len(passes)} config-4 frames, "
-              f"sampler launches {launches[mode]['sampler']}; ms/frame (CUDA "
-              f"events, {card}): {times}; mean {sum(times) / len(times)}; "
-              f"host clock to synchronize: {host}", flush=True)
-        # Where the 8 frames' time goes, on the device and on the host, per
-        # route (the adaptive route has had frames far slower than its
-        # mean).
-        top_device_ops(lambda: [render(p) for p in passes],
-                       f"{len(passes)} frames, SR_TEX_WINDOWED={mode}")
-    ttex.TEX_WINDOWED = "0"
-    assert launches["0"]["sampler"] == 0
-    assert launches["1"]["sampler"] == len(passes), launches["1"]
-    for mode in ("1", "adaptive"):
-        err = 0.0
-        for i, a, b in zip(MAIN_FRAMES, frames["0"], frames[mode]):
-            assert_bit_equal(b.color[..., 3], a.color[..., 3],
-                             f"mode {mode} frame {i} alpha")
-            assert_bit_equal(b.depth, a.depth, f"mode {mode} frame {i} depth")
-            assert bool(torch.isfinite(b.color).all())
-            err = max(err, max_err(b.color, a.color))
-        print(f"  mode {mode} frames equal mode 0's in alpha and depth; "
-              f"color max |d| {err}", flush=True)
-    return launches, ms
-
-
-def top_device_ops(fn, what, n=6):
-    """Run ``fn`` once under torch.profiler and print the ``n`` operators
-    with the most device time (self time, ms) and the device total, then
-    the same for host (CPU self) time, with the host clock of the run.
-    Returns the device total (ms of kernels and copies), the count of
-    kernels run and the count of copies and memsets."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    t0 = time.perf_counter()
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        sync()
-    wall = (time.perf_counter() - t0) * 1e3
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    def host_us(e):
-        return e.self_cpu_time_total
-
-    # The device side lists the kernels (and copies) only: an operator's
-    # self device time repeats its kernels' and would count them twice.
-    avgs = prof.key_averages()
-    kernels = [e for e in avgs
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(dev_us(e) for e in kernels) / 1e3
-    copies = sum(e.count for e in kernels
-                 if e.key.startswith(("Memcpy", "Memset")))
-    n_kernels = sum(e.count for e in kernels) - copies
-    for side, key, evts in (("device", dev_us, kernels),
-                            ("host", host_us, list(avgs))):
-        evts = sorted(evts, key=key, reverse=True)
-        total = sum(key(e) for e in evts) / 1e3
-        top = [(e.key[:60], round(key(e) / 1e3, 3), e.count)
-               for e in evts[:n]]
-        print(f"  profile of one {what}: {side} self time {total} ms"
-              f"{f' (host clock {wall} ms)' if side == 'host' else ''}; "
-              f"top (op, ms, calls): {top}", flush=True)
-    return device_ms, n_kernels, copies
-
-
-def phase_training(dev, card):
-    """Texture training at config 4's full size: 4 frames, targets from
-    render_batch with the true texture, TRAIN_STEPS steps from a flat 0.5
-    texture in modes "0" and "1"."""
-    rp = scenes.config4_many_objects(0.0, device=dev)
-    ts = torch.stack([bench_transform(rp.transform, i)
-                      for i in TRAIN_FRAMES])
-    targets = render_batch(rp, ts).color
-    sync()
-    first, launches, ms = {}, {}, {}
-    for mode in ("0", "1"):
-        ttex.TEX_WINDOWED = mode
-        tex = torch.full_like(rp.texture.data, 0.5)
-        losses, times, per_step = [], [], []
-        for step in range(TRAIN_STEPS):
-            _cuda.reset_launches()
-            t0 = time.perf_counter()
-            tex, loss = texture_train_step(tex, rp, ts, targets, lr=TRAIN_LR)
-            sync()
-            times.append((time.perf_counter() - t0) * 1e3)
-            per_step.append(_cuda.launches["sampler"])
-            losses.append(float(loss))
-            if step == 0:
-                first[mode] = tex.clone()
-        top_device_ops(lambda: texture_train_step(
-            tex, rp, ts, targets, lr=TRAIN_LR),
-            f"training step, SR_TEX_WINDOWED={mode}")
-        assert bool(torch.isfinite(tex).all())
-        launches[mode], ms[mode] = per_step, times
-        print(f"training SR_TEX_WINDOWED={mode}: config4 {rp.width}x"
-              f"{rp.height}, {len(TRAIN_FRAMES)} frames, lr {TRAIN_LR}: "
-              f"losses {losses}; "
-              f"sampler launches per step {per_step}; ms/step (host clock "
-              f"to synchronize, {card}): {times}", flush=True)
-        for a, b in zip(losses, losses[1:]):
-            assert b < a, f"mode {mode}: the loss rose {a} -> {b}"
-    ttex.TEX_WINDOWED = "0"
-    assert all(n == 0 for n in launches["0"])
-    assert all(n == len(TRAIN_FRAMES) for n in launches["1"]), launches
-    diff = max_err(first["1"], first["0"])
-    moved = float((first["0"] - 0.5).abs().max())
-    print(f"  first step: texels moved up to {moved}; modes 0 and 1 agree "
-          f"within {diff}", flush=True)
-    assert diff <= TRAIN_TOL, f"first steps differ by {diff}"
-    return launches, ms
-
-
-def phase_probe():
-    """The gather probe (K8) through its entry point, counters reset just
-    before it."""
-    _cuda.reset_launches()
-    res = probe.main()
-    sync()
-    launches = dict(_cuda.launches)
-    assert all(s[3] for s in res["shapes"]) and res["lookup_exact"]
-    for k in ("take_along_axis", "window_lookup"):
-        assert launches[k] > 0, f"{k} never launched by the probe"
-    return launches
-
-
-def corner_w_counts(rp):
-    """(straddling triangles, those with one corner behind, wholly
-    behind) of a frame: corners against the clip's plane w = CLIP_EPS."""
-    tris = rp.mesh.triangles().long()
-    w = tclip.transform_corners_clip(rp.mesh.positions[tris],
-                                     rp.transform)[:, :, 3]
-    n = (w < tclip.CLIP_EPS).sum(dim=1)
-    return (int(((n > 0) & (n < 3)).sum()), int((n == 1).sum()),
-            int((n == 3).sum()))
 
 
 def camera_bins(setup, w, h):
@@ -1530,1119 +1042,54 @@ def phase_camera_kernels(dev):
     return res
 
 
-def phase_camera(dev, card):
-    """The camera path at full size (phase 11 of the module docstring).
-    Returns each path's launches."""
-    passes = [scenes.config4_camera(t, device=dev) for t in CAMERA_TIMES]
-    w, h = passes[0].width, passes[0].height
-    for t, p in zip(CAMERA_TIMES, passes):
-        straddle, one_behind, behind = corner_w_counts(p)
-        setup = clip_inputs(p)[0]
-        info = camera_bins(setup, w, h)
-        n_tri = p.mesh.indices.numel() // 3
-        print(f"camera t={t}: {straddle} straddling triangles ({one_behind} "
-              f"with one corner behind: {straddle + one_behind} clipped "
-              f"triangles), {behind} wholly behind; {int(setup.valid.sum())} "
-              f"of {2 * n_tri} slots drawn; {live_pairs(info)} pairs, "
-              f"{int(info.n_overflow)} spilled", flush=True)
-        assert straddle >= MIN_STRADDLERS, f"t={t}: {straddle} straddlers"
+def spill_frame(dev):
+    """Config 4 at 1920x1080 on frame SPILL_FRAME of bench.py's orbit."""
+    rp = scenes.config4_many_objects(0.0, device=dev)
+    return dataclasses.replace(rp, transform=bench_transform(rp.transform,
+                                                             SPILL_FRAME))
+
+
+def path_launches(dev):
+    """{path: its launch counters}: one untimed frame per kernel's path
+    (the module docstring), the counters reset just before it."""
+    rp = spill_frame(dev)
+    cam = scenes.config4_camera(0.0, device=dev)
+    uhd = scenes.config4_many_objects(0.0, width=3840, height=2160,
+                                      textured=False, device=dev)
+
+    def pipeline():
+        ps, table = planar_front_table_of(rp)
+        tb.binned_pipeline(ps, None, width=rp.width, height=rp.height,
+                           stream_table=table, pair_budget_factor=BUDGET)
+
+    def route_1():
+        saved, ttex.TEX_WINDOWED = ttex.TEX_WINDOWED, "1"
+        try:
+            render(rp)
+        finally:
+            ttex.TEX_WINDOWED = saved
+
     paths = {
-        "clip_persp_0": ("0", lambda p: render(p)),
-        "clip_persp_1": ("1", lambda p: render(p)),
-        "persp_only": ("0", lambda p: render(dataclasses.replace(
-            p, clip_near=False))),
-        "clip_persp_pallas": ("0", lambda p: render(p, backend="pallas")),
-        "clip_flat": ("0", lambda p: render(dataclasses.replace(
-            p, shading="flat"))),
+        "main": lambda: render(rp),
+        "pallas": lambda: render(rp, backend="pallas"),
+        "flat": lambda: render(dataclasses.replace(rp, shading="flat")),
+        "binned_pipeline": pipeline,
+        "route 1": route_1,
+        "probe": lambda: probe.run(dev),
+        "perspective": lambda: render(dataclasses.replace(cam,
+                                                          clip_near=False)),
+        "clip + perspective": lambda: render(cam),
+        "4K": lambda: render(uhd),
     }
-    launches, frames = {}, {}
-    for name, (mode, fn) in paths.items():
-        ttex.TEX_WINDOWED = mode
-        fn(passes[0])  # warm-up
+    counts = {}
+    for name, fn in paths.items():
         sync()
         _cuda.reset_launches()
-        times, fbs = [], []
-        for p in passes:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fbs.append(fn(p))
-            end.record()
-            sync()
-            times.append(start.elapsed_time(end))
-        launches[name] = dict(_cuda.launches)
-        frames[name] = fbs
-        bad = [int((~torch.isfinite(fb.color)).any(-1).sum()) for fb in fbs]
-        cov = [float(fb.color[..., 3].mean()) for fb in fbs]
-        print(f"camera {name} (SR_TEX_WINDOWED={mode}): t {list(CAMERA_TIMES)}"
-              f", launches {json.dumps(launches[name])}", flush=True)
-        print(f"  coverage per frame {cov}; non-finite color pixels {bad}",
-              flush=True)
-        print(f"  ms/frame (CUDA events, {card}): {times}; mean "
-              f"{sum(times) / len(times)}", flush=True)
-        dev_ms, n_kernels, n_copies = top_device_ops(
-            lambda: [fn(p) for p in passes], f"{len(passes)} camera frames, "
-            f"{name}")
-        print(f"  device ms/frame (profiled kernels, {card}): "
-              f"{dev_ms / len(passes)}; device kernels/frame "
-              f"{n_kernels / len(passes)}, copies and memsets/frame "
-              f"{n_copies / len(passes)}", flush=True)
-        assert all(n == 0 for n in bad), f"{name}: non-finite colors {bad}"
-        assert all(c > 0 for c in cov), f"{name}: a frame covered nothing"
-    ttex.TEX_WINDOWED = "0"
-    n = len(passes)
-    need = {"clip_persp_0": {"fused_persp": n},
-            "clip_persp_1": {"fused_persp": n, "sampler": n},
-            "persp_only": {"fe_persp": n, "fused_persp": n},
-            "clip_persp_pallas": {"visibility": n},
-            "clip_flat": {"binned_vis": n}}
-    for name, counts in need.items():
-        for k, v in counts.items():
-            assert launches[name][k] == v, (name, k, launches[name])
-    for name in ("clip_persp_0", "clip_persp_1", "clip_persp_pallas",
-                 "clip_flat"):
-        assert launches[name]["fe"] == 0, (name, launches[name])
-    for k in ("fused_persp_seeded", "visibility_merge", "resolve_merge"):
-        assert launches["clip_persp_0"][k] > 0, (k, launches["clip_persp_0"])
-    assert launches["clip_persp_pallas"]["fused"] == 0
-    assert launches["clip_flat"]["fused"] == 0
-
-    for t, p, a, c, f in zip(CAMERA_TIMES, passes, frames["clip_persp_0"],
-                             frames["clip_persp_pallas"],
-                             frames["clip_flat"]):
-        setup, pv, chans, prm, lit, tex = clip_inputs(p)
-        d2, i2, _ = tb.fused_pipeline(setup, pv, prm, width=w, height=h,
-                                      chans=chans, has_light=lit,
-                                      has_texture=tex, perspective=True,
-                                      pair_budget_factor=BUDGET)
-        d3, i3 = visibility_pallas(setup, width=w, height=h)
-        sync()
-        assert_bit_equal(i2, i3, f"camera t={t}: K2 vs K3' ids")
-        assert_bit_equal(d2, d3, f"camera t={t}: K2 vs K3' depth")
-        for what, fb in (("pallas", c), ("flat", f)):
-            assert_bit_equal(fb.depth, a.depth, f"camera t={t}: {what} depth")
-            assert_bit_equal(fb.color[..., 3], a.color[..., 3],
-                             f"camera t={t}: {what} alpha")
-        print(f"camera t={t}: (depth, id) equal across K2 and K3'; coverage "
-              f"{float((i3 >= 0).float().mean())}", flush=True)
-
-    # Case 0 at full width: config 4's own frame has every corner in front
-    # (w >= 1.44), so the clip changes no bit, with or without
-    # perspective-correct attributes.
-    rp = scenes.config4_many_objects(0.0, device=dev)
-    assert corner_w_counts(rp) == (0, 0, 0)
-    for persp in (False, True):
-        base = dataclasses.replace(rp, perspective_correct=persp)
-        fa = render(base)
-        fb = render(dataclasses.replace(base, clip_near=True))
-        sync()
-        assert_bit_equal(fb.color, fa.color, f"case 0 color (persp {persp})")
-        assert_bit_equal(fb.depth, fa.depth, f"case 0 depth (persp {persp})")
-    print(f"case 0 at {rp.width}x{rp.height}: config 4 frame 0 with and "
-          f"without clip_near bit-equal (perspective off and on)", flush=True)
-    return launches
-
-
-def timed_frames(fn, items):
-    """(outputs, ms of each) of ``fn(item)`` per item, by CUDA events
-    around each call (each ends in a synchronize)."""
-    outs, times = [], []
-    for it in items:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        outs.append(fn(it))
-        end.record()
-        sync()
-        times.append(start.elapsed_time(end))
-    return outs, times
-
-
-def tie_class_diff(color_a, color_b, depth_a, depth_b, *, atol,
-                   tie_rtol=1e-4, max_diff_frac=0.005):
-    """The JAX package's testing/compare.py ``assert_tie_class_equal`` in
-    torch: few pixels differ, and every pixel whose color or depth
-    differs beyond ``atol`` has the same depth in both frames to
-    ``tie_rtol`` (a flipped depth tie), never a different surface.
-    Returns the count of differing pixels."""
-    bad_c = ~torch.isclose(color_a, color_b, atol=atol).all(-1)
-    bad_d = ~torch.isclose(depth_a, depth_b, atol=atol)
-    assert float(bad_c.float().mean()) <= max_diff_frac, "color differs"
-    assert float(bad_d.float().mean()) <= max_diff_frac, "depth differs"
-    diff = bad_c | bad_d
-    da, db = depth_a[diff], depth_b[diff]
-    both_inf = torch.isinf(da) & torch.isinf(db)
-    both_fin = torch.isfinite(da) & torch.isfinite(db)
-    scale = torch.maximum(da.abs(), db.abs()).clamp(min=1e-6)
-    tie = both_inf | (both_fin & ((da - db).abs() <= tie_rtol * scale))
-    assert bool(tie.all()), f"{int((~tie).sum())} pixels are not ties"
-    return int(diff.sum())
-
-
-def profile_per_frame(fn, n, what, card):
-    dev_ms, n_kernels, n_copies = top_device_ops(fn, what)
-    print(f"  device ms/frame (profiled kernels, {card}): {dev_ms / n}; "
-          f"device kernels/frame {n_kernels / n}, copies and memsets/frame "
-          f"{n_copies / n}", flush=True)
-    return dev_ms / n, n_kernels / n
-
-
-def with_trilinear(rp):
-    return dataclasses.replace(rp, texture=ttex.Texture(
-        data=rp.texture.data, filter="trilinear", wrap=rp.texture.wrap))
-
-
-def phase_trilinear(dev, card):
-    """12a: the 8 main-path frames with the texture trilinear on auto,
-    and frame 0 on pallas; alpha and depth equal the bilinear frames',
-    card equals CPU at phase 6's size, and the trilinear tail's device
-    time against mode "0"'s bilinear tail."""
-    rp = scenes.config4_many_objects(0.0, device=dev)
-    passes = [dataclasses.replace(rp, transform=bench_transform(
-        rp.transform, i)) for i in MAIN_FRAMES]
-    tri = [with_trilinear(p) for p in passes]
-    ttex.TEX_WINDOWED = "0"
-    render(tri[0])  # warm-up
-    sync()
-    _cuda.reset_launches()
-    fbs, times = timed_frames(render, tri)
-    launches = dict(_cuda.launches)
-    bil, _ = timed_frames(render, passes)
-    moved = 0.0
-    for i, a, b in zip(MAIN_FRAMES, bil, fbs):
-        assert_bit_equal(b.color[..., 3], a.color[..., 3],
-                         f"trilinear frame {i} alpha")
-        assert_bit_equal(b.depth, a.depth, f"trilinear frame {i} depth")
-        assert bool(torch.isfinite(b.color).all()), f"frame {i}: non-finite"
-        moved = max(moved, max_err(b.color, a.color))
-    print(f"trilinear: {len(tri)} config-4 frames {list(MAIN_FRAMES)} on "
-          f"auto, launches {json.dumps(launches)}; alpha and depth equal the "
-          f"bilinear frames', color moved up to {moved}", flush=True)
-    print(f"  ms/frame (CUDA events, {card}): {times}; mean "
-          f"{sum(times) / len(times)}", flush=True)
-    profile_per_frame(lambda: [render(p) for p in tri], len(tri),
-                      f"{len(tri)} trilinear frames", card)
-    _cuda.reset_launches()
-    fb_p = render(tri[0], backend="pallas")
-    sync()
-    pallas_launches = dict(_cuda.launches)
-    assert pallas_launches["fe"] == 1 and pallas_launches["visibility"] == 1
-    assert_bit_equal(fb_p.color[..., 3], fbs[0].color[..., 3],
-                     "trilinear pallas alpha")
-    assert_bit_equal(fb_p.depth, fbs[0].depth, "trilinear pallas depth")
-    assert bool(torch.isfinite(fb_p.color).all())
-    print(f"  pallas frame 0: launches {json.dumps(pallas_launches)}; alpha "
-          f"and depth equal auto's; color max |d| "
-          f"{max_err(fb_p.color, fbs[0].color)}", flush=True)
-    # The texture tails alone on frame 0's planes.
-    tex, u, v, covered = frame0_uv(dev)
-    tri_tex = with_trilinear(rp).texture
-    tail_ms = graph_ms(lambda: ttex.sample_texture_planes_trilinear_compacted(
-        tri_tex, u, v, covered), 10)
-    bil_ms = graph_ms(lambda: ttex.sample_texture_planes_compacted(
-        tex, u, v, covered), 10)
-    print(f"  texture tail device ms (CUDA-graph replay, frame 0, {card}): "
-          f"trilinear {tail_ms}, mode \"0\" bilinear {bil_ms}, ratio "
-          f"{tail_ms / bil_ms}", flush=True)
-    rp_c = with_trilinear(scenes.config4_many_objects(
-        0.3, width=320, height=192, triangles=3000, device="cpu"))
-    for backend in ("auto", "pallas"):
-        fb_c = render(rp_c, backend=backend)
-        fb_g = render(rp_c.to(dev), backend=backend)
-        sync()
-        cg = fb_g.color.cpu()
-        assert_bit_equal(cg[..., 3], fb_c.color[..., 3], "small trilinear")
-        assert_bit_equal(fb_g.depth.cpu(), fb_c.depth, "small trilinear")
-        err = max_err(cg, fb_c.color)
-        assert err <= 1e-3, f"small trilinear {backend}: color {err}"
-        print(f"  small trilinear (320x192, 3000 tris, {backend}): card == "
-              f"CPU in alpha and depth, color max |d| {err}", flush=True)
-    assert launches["fe"] == len(tri), launches
-    assert launches["fused"] == len(tri), launches
-    return launches
-
-
-def phase_rows(dev, card):
-    """12b: render_rows of config 4 at 1080p in four 270-row bands and the
-    ragged band, frames 0 and 120 on auto and pallas and frame 0 flat; the
-    stitched bands equal the full frame (alpha and ids exact, depth and
-    color in the tie class, and whether bit for bit)."""
-    rp = scenes.config4_many_objects(0.0, device=dev)
-    w, h = rp.width, rp.height
-    frames = {i: dataclasses.replace(rp, transform=bench_transform(
-        rp.transform, i)) for i in ROW_FRAMES}
-    paths = {"auto": ("auto", "textured", ROW_FRAMES),
-             "pallas": ("pallas", "textured", ROW_FRAMES),
-             "flat": ("auto", "flat", ROW_FRAMES[:1])}
-    bands = ROW_BANDS + (RAGGED_BAND,)
-
-    def ids_of(p, path, y0, rows):
-        ps, chans, attrs, prm, lit, tex = triangle_inputs(p)
-        kw = dict(width=w, height=rows, y_start=y0)
-        if path == "auto":
-            return tb.fused_pipeline(ps, attrs, prm, chans=chans,
-                                     has_light=lit, has_texture=tex,
-                                     pair_budget_factor=BUDGET, **kw)[:2]
-        if path == "pallas":
-            return visibility_pallas(fe.to_setup(ps), **kw)
-        return tb.visibility_binned(ps, pair_budget_factor=BUDGET, **kw)
-
-    launches = {}
-    for path, (backend, shading, idx) in paths.items():
-        ps_ = [dataclasses.replace(frames[i], shading=shading) for i in idx]
-        render_rows(ps_[0], 0, 270, backend=backend)  # warm-up
-        sync()
-        _cuda.reset_launches()
-        out, times = timed_frames(lambda p: [
-            render_rows(p, y0, rows, backend=backend) for y0, rows in bands],
-            ps_)
-        launches[path] = dict(_cuda.launches)
-        print(f"render_rows {path}: frames {list(idx)}, bands "
-              f"{list(bands)}, launches {json.dumps(launches[path])}; ms per "
-              f"frame of 5 bands (CUDA events, {card}): {times}", flush=True)
-        profile_per_frame(lambda: [render_rows(p, y0, rows, backend=backend)
-                                   for p in ps_ for y0, rows in bands],
-                          len(ps_), f"{len(ps_)} frames of 5 bands, {path}",
-                          card)
-        for i, p, fbs in zip(idx, ps_, out):
-            full = render(p, backend=backend)
-            color = torch.cat([fb.color for fb in fbs[:4]])
-            depth = torch.cat([fb.depth for fb in fbs[:4]])
-            y0, rows = RAGGED_BAND
-            rag = slice(y0, y0 + rows)
-            for what, c, d, fc, fd in (
-                    ("4 bands", color, depth, full.color, full.depth),
-                    ("ragged", fbs[4].color, fbs[4].depth, full.color[rag],
-                     full.depth[rag])):
-                assert bool(torch.isfinite(c).all())
-                assert_bit_equal(c[..., 3], fc[..., 3],
-                                 f"rows {path} frame {i} {what} alpha")
-                n_diff = tie_class_diff(c, fc, d, fd, atol=1e-6)
-                bit = bool((c == fc).all()) and bool((d == fd).all())
-                print(f"  frame {i} {what}: alpha exact, depth and color in "
-                      f"the tie class ({n_diff} pixels differ); bit-equal "
-                      f"{bit}", flush=True)
-            _, ids_full = ids_of(p, path, 0, h)
-            for y0, rows in bands:
-                _, ids = ids_of(p, path, y0, rows)
-                assert_bit_equal(ids, ids_full[y0:y0 + rows],
-                                 f"rows {path} frame {i} ids {y0}+{rows}")
-        sync()
-    need = {"auto": ("fe", "fused"), "pallas": ("fe", "visibility"),
-            "flat": ("fe", "binned_vis")}
-    for path, ks in need.items():
-        for k in ks:
-            assert launches[path][k] > 0, f"{k} never launched on " \
-                f"render_rows {path}"
-    print("  band ids equal the full frame's on every path", flush=True)
-    return launches
-
-
-def phase_msaa(dev, card):
-    """12c: render_msaa(samples=2) of config 4 at 1080p (3840x2160
-    inside), frames 0 and 120."""
-    rp = scenes.config4_many_objects(0.0, device=dev)
-    passes = [dataclasses.replace(rp, transform=bench_transform(
-        rp.transform, i)) for i in MSAA_FRAMES]
-    render_msaa(passes[0], 2)  # warm-up
-    sync()
-    _cuda.reset_launches()
-    fbs, times = timed_frames(lambda p: render_msaa(p, 2), passes)
-    launches = dict(_cuda.launches)
-    print(f"render_msaa x2: frames {list(MSAA_FRAMES)} of config 4 at "
-          f"{rp.width}x{rp.height} ({2 * rp.width}x{2 * rp.height} inside), "
-          f"launches {json.dumps(launches)}; ms/frame (CUDA events, {card}): "
-          f"{times}", flush=True)
-    for i, p, fb in zip(MSAA_FRAMES, passes, fbs):
-        assert fb.color.shape == (rp.height, rp.width, 4)
-        assert bool(torch.isfinite(fb.color).all()), f"msaa {i}: non-finite"
-        big = render(dataclasses.replace(p, width=2 * rp.width,
-                                         height=2 * rp.height))
-        assert_bit_equal(fb.depth, big.depth.reshape(
-            rp.height, 2, rp.width, 2).amin(dim=(1, 3)), f"msaa {i} depth")
-        assert_bit_equal(fb.color, downsample_box(big.color, 2),
-                         f"msaa {i} color")
-        print(f"  frame {i}: depth the min and color the mean of the 2x2 "
-              f"blocks of the 4K frame (coverage {float((big.depth < float('inf')).float().mean())})",
-              flush=True)
-    profile_per_frame(lambda: [render_msaa(p, 2) for p in passes],
-                      len(passes), f"{len(passes)} msaa x2 frames", card)
-    rp_c = scenes.config4_many_objects(0.0, width=160, height=96,
-                                       triangles=3000, device="cpu")
-    fb_c = render_msaa(rp_c, 2)
-    fb_g = render_msaa(rp_c.to(dev), 2)
-    sync()
-    assert_bit_equal(fb_g.depth.cpu(), fb_c.depth, "small msaa depth")
-    err = max_err(fb_g.color.cpu(), fb_c.color)
-    assert err <= 1e-3, f"small msaa: color {err}"
-    print(f"  small msaa (160x96, 3000 tris): card == CPU in depth, color max"
-          f" |d| {err}", flush=True)
-    assert launches["fe"] == len(passes), launches
-    assert launches["fused"] == len(passes), launches
-    return launches
-
-
-def phase_lines(dev, card):
-    """12d: the line and point primitives at 1080p, card frames equal to
-    the CPU's bit for bit (the last writer wins on both)."""
-    rp = scenes.config4_many_objects(0.0, device=dev)
-    m = rp.mesh
-    lines = dataclasses.replace(rp, primitive="line", mesh=Mesh(
-        positions=m.positions, indices=m.indices[:LINE_INDICES],
-        colors=m.colors))
-    cases = {
-        "wireframe_cube": [scenes.wireframe_cube(t, width=rp.width,
-                                                 height=rp.height, device=dev)
-                           for t in CUBE_TIMES],
-        "config4_lines": [lines],
-        "config4_points": [dataclasses.replace(rp, primitive="vertices")],
-    }
-    for name, passes in cases.items():
-        render(passes[0])  # warm-up
-        sync()
-        fbs, times = timed_frames(render, passes)
-        written = []
-        for p, fb in zip(passes, fbs):
-            fb_c = render(p.to("cpu"))
-            assert_bit_equal(fb.color.cpu(), fb_c.color, f"{name} color")
-            assert_bit_equal(fb.depth.cpu(), fb_c.depth, f"{name} depth")
-            written.append(int((fb_c.color[..., 3] > 0).sum()))
-        n = (p.mesh.indices.numel() // (2 if p.primitive == "line" else 1))
-        print(f"{name}: {len(passes)} frames at {rp.width}x{rp.height}, "
-              f"{n} {'lines' if p.primitive == 'line' else 'points'} a frame;"
-              f" card == CPU bit for bit; pixels written {written}; ms/frame "
-              f"(CUDA events, {card}): {times}", flush=True)
-        profile_per_frame(lambda: [render(p) for p in passes], len(passes),
-                          f"{len(passes)} {name} frames", card)
-        assert all(x > 0 for x in written), name
-
-
-def phase_formats(dev, card):
-    """12e: every pixel format, resize and the 2D primitives on phase 5's
-    frame 0, card against CPU."""
-    rp = scenes.config4_many_objects(0.0, device=dev)
-    color = render(rp).color
-    cpu = color.cpu()
-    for fmt in PIXEL_FORMATS:
-        ec = encode_pixels(cpu, fmt)
-        eg = encode_pixels(color, fmt)
-        assert eg.dtype == ec.dtype, fmt
-        d = float((eg.cpu().to(torch.float64)
-                   - ec.to(torch.float64)).abs().max())
-        assert d <= (1 if fmt == "gray8" else 0), (fmt, d)
-        assert_bit_equal(decode_pixels(ec.to(dev), fmt).cpu(),
-                         decode_pixels(ec, fmt), f"{fmt} decode")
-    print(f"pixel formats {sorted(PIXEL_FORMATS)}: card == CPU (gray8 within "
-          f"1 LSB) on frame 0", flush=True)
-    for out in RESIZE_SIZES:
-        bg = resize_bilinear(color, *out)
-        err = max_err(bg.cpu(), resize_bilinear(cpu, *out))
-        assert err <= RESIZE_TOL, f"resize_bilinear {out}: {err}"
-        assert_bit_equal(resize_nearest(color, *out).cpu(),
-                         resize_nearest(cpu, *out), f"resize_nearest {out}")
-        print(f"  resize to {out[1]}x{out[0]}: bilinear card vs CPU max |d| "
-              f"{err}, nearest bit-equal; bilinear "
-              f"{graph_ms(lambda: resize_bilinear(color, *out), 5)} ms, "
-              f"nearest {graph_ms(lambda: resize_nearest(color, *out), 5)} "
-              f"ms (CUDA-graph replay, {card})", flush=True)
-    draws = {
-        "rect": lambda im: p2.draw_rect(im, 100.5, 80.0, 900.0, 333.25,
-                                        (1.0, 0.2, 0.0, 0.7)),
-        "circle": lambda im: p2.draw_circle(im, 960.0, 540.5, 300.0,
-                                            (0.0, 0.0, 1.0)),
-        "line": lambda im: p2.draw_line(im, 3.0, 1070.0, 1910.0, 5.0,
-                                        (0.0, 1.0, 0.0)),
-        "triangle2d": lambda im: p2.draw_triangle2d(
-            im, (960.0, 20.5), (30.0, 1050.0), (1890.5, 900.0)),
-    }
-    for name, draw in draws.items():
-        assert_bit_equal(draw(color).cpu(), draw(cpu), f"2D {name}")
-    print(f"  2D primitives {list(draws)} on the 1080p frame: card == CPU "
-          f"bit for bit", flush=True)
-
-
-def phase_surface(dev, card):
-    """Phase 12 (the module docstring): each path with the launch
-    counters reset just before it and read just after."""
-    launches = {"trilinear": phase_trilinear(dev, card)}
-    sync()
-    launches.update({f"rows_{k}": v for k, v in phase_rows(dev, card).items()})
-    sync()
-    launches["msaa"] = phase_msaa(dev, card)
-    sync()
-    phase_lines(dev, card)
-    sync()
-    phase_formats(dev, card)
-    sync()
-    return launches
-
-
-def reset_counts():
-    sync()
-    _cuda.reset_launches()
-
-
-def read_counts(what, need=("fe", "fused")):
-    """The counters after a part (K1 and K2 must have launched)."""
-    sync()
-    counts = dict(_cuda.launches)
-    for k in need:
-        assert counts[k] > 0, f"{k} never launched on {what}"
-    return counts
-
-
-def phase_frame_loop(dev, card, tmp):
-    """13a: FrameLoop over LOOP_FRAMES frames of bench.py's animation at
-    config 4's full size with the PNG sink (native runtime), the live
-    viewer and no sink; the viewer's frame and the PNG files decode to
-    to_rgba8 of the card frame bit for bit."""
-    assert runtime.available(), "the native runtime did not build"
-    rp = scenes.config4_many_objects(0.0, device=dev)
-    base = rp.transform
-    used = []
-
-    def transform_fn(t):
-        used.append(bench_transform(base, t * 60.0))
-        return used[-1]
-
-    cfg = RenderConfig(width=rp.width, height=rp.height, backend="auto",
-                       time_step=1.0 / 60.0)
-    FrameLoop(lambda t: rp, transform_fn, cfg).run(2, out_dir=tmp)  # warm
-    img = to_rgba8(render(rp).color).cpu().numpy()
-    enc = {}
-    for name, write in (("native", runtime.write_png),
-                        ("python", image_io.write_png)):
-        t0 = time.perf_counter()
-        for _ in range(3):
-            write(os.path.join(tmp, f"enc_{name}.png"), img)
-        enc[name] = (time.perf_counter() - t0) / 3 * 1e3
-    assert np.array_equal(runtime.read_png(os.path.join(tmp,
-                                                        "enc_native.png")),
-                          img)
-    print(f"PNG encode of one {rp.width}x{rp.height} RGBA8 frame (host "
-          f"clock, mean of 3): native {enc['native']} ms, Python "
-          f"{enc['python']} ms", flush=True)
-    launches, out = {}, os.path.join(tmp, "frames")
-    for sink in ("png", "viewer", "none"):
-        loop = FrameLoop(lambda t: rp, transform_fn, cfg)
-        used.clear()
-        reset_counts()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        if sink == "viewer":
-            with PresentServer() as srv:
-                fps = loop.run(LOOP_FRAMES, present=srv)
-                with urllib.request.urlopen(srv.url + "frame.png",
-                                            timeout=30) as r:
-                    png = r.read()
-        else:
-            fps = loop.run(LOOP_FRAMES,
-                           out_dir=out if sink == "png" else None)
-        end.record()
-        launches[sink] = read_counts(f"FrameLoop ({sink})")
-        assert launches[sink]["fe"] == LOOP_FRAMES, launches[sink]
-        ms = start.elapsed_time(end) / LOOP_FRAMES
-        print(f"FrameLoop, sink {sink}: {LOOP_FRAMES} frames of config4 "
-              f"{rp.width}x{rp.height}: {fps} FPS (host clock, sink "
-              f"included), {ms} ms/frame (CUDA events, {card}); launches "
-              f"{json.dumps(launches[sink])}", flush=True)
-        if sink == "viewer":
-            want = to_rgba8(render(dataclasses.replace(
-                rp, transform=used[-1])).color).cpu()
-            got = torch.from_numpy(image_io.decode_png(png))
-            assert_bit_equal(got, want, "viewer frame vs to_rgba8")
-            print(f"  viewer: /frame.png of frame {len(used) - 1} equals "
-                  f"to_rgba8 of the card frame bit for bit", flush=True)
-        if sink == "png":
-            files = sorted(os.listdir(out))
-            assert len(files) == LOOP_FRAMES, files
-            for i in (0, LOOP_FRAMES // 2, LOOP_FRAMES - 1):
-                want = to_rgba8(render(dataclasses.replace(
-                    rp, transform=used[i])).color).cpu()
-                got = torch.from_numpy(runtime.read_png(
-                    os.path.join(out, files[i])))
-                assert_bit_equal(got, want, f"PNG frame {i} vs to_rgba8")
-            print(f"  PNG: frames 0, {LOOP_FRAMES // 2} and "
-                  f"{LOOP_FRAMES - 1} decode to to_rgba8 of the card frame "
-                  f"bit for bit", flush=True)
-    return launches
-
-
-def phase_chunked(dev, card):
-    """13b: render_batch_chunked of CHUNK_FRAMES frames (vmap_chunk
-    VMAP_CHUNK) equals render_batch bit for bit; peak memory of each."""
-    rp = scenes.config4_many_objects(0.0, device=dev)
-    ts = torch.stack([bench_transform(rp.transform, i)
-                      for i in range(CHUNK_FRAMES)])
-    out, peak, ms, launches = {}, {}, {}, {}
-    for name, fn in (("render_batch", lambda: render_batch(rp, ts)),
-                     ("render_batch_chunked", lambda: render_batch_chunked(
-                         rp, ts, vmap_chunk=VMAP_CHUNK))):
-        reset_counts()
-        torch.cuda.reset_peak_memory_stats(dev)
-        base_mem = torch.cuda.memory_allocated(dev)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out[name] = fn()
-        end.record()
-        launches[name] = read_counts(name)
-        peak[name] = torch.cuda.max_memory_allocated(dev) - base_mem
-        ms[name] = start.elapsed_time(end) / CHUNK_FRAMES
-        if name == "render_batch_chunked":
-            ref = out["render_batch"]
-            assert_bit_equal(out[name].color, ref.color, "chunked color")
-            assert_bit_equal(out[name].depth, ref.depth, "chunked depth")
-        print(f"{name}: {CHUNK_FRAMES} frames of config4 {rp.width}x"
-              f"{rp.height}: peak memory above the scene "
-              f"{peak[name] / 2**20} MiB (max_memory_allocated), "
-              f"{ms[name]} ms/frame (CUDA events, {card}); launches "
-              f"{json.dumps(launches[name])}", flush=True)
-    print(f"  render_batch_chunked(vmap_chunk={VMAP_CHUNK}) equals "
-          f"render_batch bit for bit", flush=True)
-    return launches
-
-
-def band_ids(rp, ps, y0, rows):
-    """Triangle ids of rows [y0, y0 + rows) from K2 (fused_pipeline) over
-    the front-end ``ps``, as render's main path computes them."""
-    _, chans, attrs, prm, lit, tex = triangle_inputs(rp, ps)
-    attrs = _pad_cols(attrs, ps.num_triangles)
-    return tb.fused_pipeline(ps, attrs, prm, chans=chans, has_light=lit,
-                             has_texture=tex, width=rp.width, height=rows,
-                             y_start=y0, pair_budget_factor=BUDGET)[1]
-
-
-def phase_sharded(dev, card):
-    """13c: render_sharded of the MAIN_FRAMES on make_mesh(2, 4) of the
-    one card (split front-end on and off) and on make_mesh(1, 1): alpha
-    and ids equal render_batch's, depth and color in the tie class (and
-    whether bit for bit); the gathered front-end and stream table equal
-    the unsplit K1 launch's bit for bit. Each mesh is timed twice, in
-    the order A B C C B A."""
-    rp = scenes.config4_many_objects(0.0, device=dev)
-    ts = torch.stack([bench_transform(rp.transform, i) for i in MAIN_FRAMES])
-    ref = render_batch(rp, ts)
-    meshes = {"2x4 split": (make_mesh(2, 4, [dev] * 8), True),
-              "2x4 unsplit": (make_mesh(2, 4, [dev] * 8), False),
-              "1x1": (make_mesh(1, 1), True)}
-    render_sharded(rp, ts[:2], meshes["2x4 split"][0])  # warm-up
-    launches, times = {}, {name: [] for name in meshes}
-    # Each mesh twice, in the order A B C C B A, so that neither design
-    # gains from running later in the call.
-    for name in list(meshes) + list(reversed(meshes)):
-        mesh, split = meshes[name]
-        reset_counts()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fb = render_sharded(rp, ts, mesh, shard_frontend=split)
-        end.record()
-        launches[name] = read_counts(f"render_sharded {name}")
-        times[name].append(start.elapsed_time(end) / len(MAIN_FRAMES))
-        if len(times[name]) == 2:
-            print(f"render_sharded {name}: ms/frame (CUDA events, {card}) "
-                  f"in the runs A B C C B A: {times[name]}", flush=True)
-            continue
-        assert bool(torch.isfinite(fb.color).all())
-        assert_bit_equal(fb.color[..., 3], ref.color[..., 3],
-                         f"sharded {name} alpha")
-        n_diff = tie_class_diff(fb.color, ref.color, fb.depth, ref.depth,
-                                atol=1e-6)
-        bit = bool((fb.color == ref.color).all()) and bool(
-            (fb.depth == ref.depth).all())
-        print(f"render_sharded {name}: {len(MAIN_FRAMES)} frames of "
-              f"config4 {rp.width}x{rp.height}, mesh {mesh.shape}: "
-              f"{times[name][0]} ms/frame (CUDA events, {card}); alpha "
-              f"exact, depth and color in the tie class ({n_diff} pixels "
-              f"differ); bit-equal {bit}; launches "
-              f"{json.dumps(launches[name])}", flush=True)
-        if name != "1x1":
-            profile_per_frame(lambda: render_sharded(
-                rp, ts, mesh, shard_frontend=split), len(MAIN_FRAMES),
-                f"{len(MAIN_FRAMES)} frames, render_sharded {name}", card)
-    rows = rp.height // 4
-    for i, t in enumerate(ts):
-        p = dataclasses.replace(rp, transform=t)
-        full = planar_front_of(p)
-        table_rows, (table, n_chans, _) = planar_front_table_of(p)
-        gathered, (g_table, g_chans, poison) = sharded_front(
-            rp.to, t, [dev] * 4)[dev]
-        n = full.num_triangles
-        for f in dataclasses.fields(fe.PlanarSetup):
-            g = getattr(gathered, f.name)
-            assert_bit_equal(g[:n], getattr(full, f.name),
-                             f"gathered front {f.name}")
-            assert_bit_equal(g[:n], getattr(table_rows, f.name),
-                             f"gathered front {f.name} vs the table launch")
-        assert g_chans == n_chans
-        assert_bit_equal(g_table[:n], table, "gathered stream table")
-        assert not bool(gathered.valid[n:].any())
-        assert_bit_equal(g_table[n:], poison.expand(len(g_table) - n, -1),
-                         "gathered stream table padding")
-        ids_full = band_ids(p, full, 0, p.height)
-        for r in range(4):
-            y0 = r * rows
-            for what, ps in (("split", gathered), ("unsplit", full)):
-                assert_bit_equal(band_ids(p, ps, y0, rows),
-                                 ids_full[y0:y0 + rows],
-                                 f"sharded ids {what} frame {i} band {r}")
-    print(f"  gathered front-end and stream table ({gathered.num_triangles} "
-          f"rows over 4 row shards, {n_chans} channels) equal the unsplit "
-          f"K1 launch's ({n}) bit for bit on every frame; band ids equal "
-          f"the full frame's", flush=True)
-    return launches
-
-
-def phase_train_mesh(dev, card):
-    """13d: one texture_train_step in mode "1" on make_mesh(2, 2) of the
-    one card against mesh=None (phase 9's frames): loss within rel
-    TRAIN_TOL, texels within TRAIN_TOL."""
-    rp = scenes.config4_many_objects(0.0, device=dev)
-    ts = torch.stack([bench_transform(rp.transform, i)
-                      for i in TRAIN_FRAMES])
-    targets = render_batch(rp, ts).color
-    tex0 = torch.full_like(rp.texture.data, 0.5)
-    ttex.TEX_WINDOWED = "1"
-    out, launches = {}, {}
-    for name, mesh in (("none", None),
-                       ("2x2", make_mesh(2, 2, [dev] * 4))):
-        reset_counts()
-        t0 = time.perf_counter()
-        out[name] = texture_train_step(tex0, rp, ts, targets, mesh,
-                                       lr=TRAIN_LR)
-        launches[name] = read_counts(f"training, mesh {name}",
-                                     ("fe", "fused", "sampler"))
-        print(f"training step, mesh {name}, SR_TEX_WINDOWED=1: loss "
-              f"{float(out[name][1])}, {(time.perf_counter() - t0) * 1e3} "
-              f"ms (host clock to synchronize, {card}); launches "
-              f"{json.dumps(launches[name])}", flush=True)
-    ttex.TEX_WINDOWED = "0"
-    (tex_a, loss_a), (tex_b, loss_b) = out["none"], out["2x2"]
-    rel = abs(float(loss_b) - float(loss_a)) / float(loss_a)
-    diff = max_err(tex_b, tex_a)
-    print(f"  2x2 mesh vs none: loss rel {rel}, texels max |d| {diff}; "
-          f"texels moved up to {float((tex_a - tex0).abs().max())}",
-          flush=True)
-    assert rel <= TRAIN_TOL and diff <= TRAIN_TOL, (rel, diff)
-    return launches
-
-
-def phase_teapot(dev, card):
-    """13e: config 3 from the teapot generator (assets/teapot.obj
-    ignored) at 1024x1024 through render; card vs CPU at phase 6's
-    size."""
-    obj = scenes.TEAPOT_OBJ
-    scenes.TEAPOT_OBJ = obj.with_name("no_such_teapot.obj")
-    try:
-        rp = scenes.config3_phong_mesh(0.3, device=dev)
-        small_c = scenes.config3_phong_mesh(0.3, width=320, height=192,
-                                            device="cpu")
-    finally:
-        scenes.TEAPOT_OBJ = obj
-    reset_counts()
-    fb = render(rp)
-    launches = read_counts("config 3 from the generator")
-    cov = float(fb.color[..., 3].mean())
-    assert bool(torch.isfinite(fb.color).all()) and cov > 0
-    fb_c = render(small_c)
-    fb_g = render(small_c.to(dev))
-    sync()
-    assert_bit_equal(fb_g.color[..., 3].cpu(), fb_c.color[..., 3],
-                     "teapot small alpha")
-    assert_bit_equal(fb_g.depth.cpu(), fb_c.depth, "teapot small depth")
-    err = max_err(fb_g.color.cpu(), fb_c.color)
-    assert err <= 1e-3, f"teapot small color differs by {err}"
-    print(f"config 3 from teapot_mesh(9): T={rp.mesh.indices.numel() // 3}, "
-          f"{rp.width}x{rp.height}, coverage {cov}, finite; card == CPU at "
-          f"320x192 (alpha and depth bit for bit, color max |d| {err}); "
-          f"launches {json.dumps(launches)}", flush=True)
-    return launches
-
-
-def phase_trace(dev, card, tmp):
-    """13f: profiling.trace around two main-path frames: the Chrome trace
-    holds the program's spans, sr.render and its layers, and K2's
-    launches."""
-    rp = scenes.config4_many_objects(0.0, device=dev)
-    passes = [dataclasses.replace(rp, transform=bench_transform(
-        rp.transform, i)) for i in (0, 1)]
-    reset_counts()
-    with profiling.trace(os.path.join(tmp, "trace")) as log_dir:
-        for p in passes:
-            render(p)
-        sync()
-    launches = read_counts("the traced frames")
-    path = os.path.join(log_dir, profiling.TRACE_FILE)
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    names = [e.get("name", "") for e in events]
-    spans = [n for n in names if n.startswith(profiling.PREFIX)]
-    k2 = [e for e in events if e.get("cat") == "kernel"
-          and "walk_kernel<true" in e.get("name", "")]
-    print(f"trace: {path} ({os.path.getsize(path)} bytes, {len(events)} "
-          f"events): spans {sorted(set(spans))}, {len(k2)} K2 kernel "
-          f"events; launches {json.dumps(launches)}", flush=True)
-    assert spans.count("sr.render") == 2, spans
-    assert {f"sr.{k}" for k in ("front", "bins", "spill", "raster",
-                                "texture_tail")} <= set(spans), spans
-    assert len(k2) >= 2, "no K2 launch in the trace"
-    return launches
-
-
-def phase_bench(dev, card, main_ms):
-    """13g: bench_frame of the main path (BENCH_ITERS frames)."""
-    rp = scenes.config4_many_objects(0.0, device=dev)
-    n = BENCH_ITERS + 3
-    passes = [dataclasses.replace(rp, transform=bench_transform(
-        rp.transform, i)) for i in range(n)]
-    reset_counts()
-    res = bench_frame(render, lambda i: (passes[i % n],),
-                      name="config4 main path",
-                      triangles=rp.mesh.indices.numel() // 3,
-                      iters=BENCH_ITERS)
-    launches = read_counts("bench_frame")
-    print(f"bench_frame ({card}): {res} ; BenchResult "
-          f"{json.dumps(dataclasses.asdict(res))}; phase 5's ms/frame "
-          f"(CUDA events) {main_ms}", flush=True)
-    return launches
-
-
-def phase_host(dev, card, main_ms):
-    """Phase 13 (the module docstring): each part with the counters reset
-    just before it and read just after."""
-    with tempfile.TemporaryDirectory(prefix="sr_smoke_") as tmp:
-        launches = {"loop": phase_frame_loop(dev, card, tmp)}
-        launches["chunked"] = phase_chunked(dev, card)
-        launches["sharded"] = phase_sharded(dev, card)
-        launches["train_mesh"] = phase_train_mesh(dev, card)
-        launches["teapot"] = phase_teapot(dev, card)
-        launches["trace"] = phase_trace(dev, card, tmp)
-        launches["bench"] = phase_bench(dev, card, main_ms)
-    return launches
-
-
-def sync_count(fn):
-    """Host syncs of ``fn()`` as torch's sync debug mode sees them: the
-    synchronizing operations it reports in "warn" mode."""
-    with warnings.catch_warnings(record=True) as got:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    sync()
-    return sum("called a synchronizing" in str(w.message) for w in got)
-
-
-def sync_free(fn, what):
-    """Run ``fn()`` under sync debug mode "error": a host sync raises."""
-    torch.cuda.set_sync_debug_mode("error")
-    try:
         fn()
-    except RuntimeError as e:
-        raise AssertionError(f"{what} syncs with the host: {e}") from e
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    sync()
-
-
-def sync_routes(rp, passes):
-    """{route: (frames, a function rendering them)} of every eager route
-    that must make no host sync: the main path in modes "0" and "1" (the
-    8 frames, spills included), flat shading and binned_pipeline with
-    attributes (frames 0 and 120), the camera path (clip + perspective,
-    both modes), render_rows bands (frames 0 and 120) and render_sharded
-    on a 1 x 2 mesh of the card (frames 0 and 120, the split
-    front-end)."""
-    w, h = rp.width, rp.height
-    spill = [p for i, p in zip(MAIN_FRAMES, passes) if i in (0, 120)]
-
-    def in_mode(mode, fn):
-        def run():
-            ttex.TEX_WINDOWED = mode
-            try:
-                fn()
-            finally:
-                ttex.TEX_WINDOWED = "0"
-        return run
-
-    def pipeline(p):
-        ps, table = planar_front_table_of(p)
-        tb.binned_pipeline(ps, None, width=w, height=h, stream_table=table,
-                           pair_budget_factor=BUDGET)
-
-    dev = rp.transform.device
-    cams = [scenes.config4_camera(t, device=dev) for t in CAMERA_TIMES[:2]]
-    bands = ROW_BANDS + (RAGGED_BAND,)
-    ts = torch.stack([p.transform for p in spill])
-    mesh = make_mesh(1, 2, [dev, dev])
-    routes = {
-        "auto, mode 0": (len(passes), in_mode("0", lambda: [
-            render(p) for p in passes])),
-        "auto, mode 1": (len(passes), in_mode("1", lambda: [
-            render(p) for p in passes])),
-        "flat": (len(spill), lambda: [render(dataclasses.replace(
-            p, shading="flat")) for p in spill]),
-        "binned_pipeline": (len(spill), lambda: [pipeline(p)
-                                                 for p in spill]),
-        "camera, mode 0": (len(cams), in_mode("0", lambda: [
-            render(c) for c in cams])),
-        "camera, mode 1": (len(cams), in_mode("1", lambda: [
-            render(c) for c in cams])),
-        "render_rows": (len(spill) * len(bands), lambda: [
-            render_rows(p, y0, n) for p in spill for y0, n in bands]),
-        "render_sharded 1x2": (len(spill), lambda: render_sharded(
-            rp, ts, mesh)),
-    }
-    return routes
-
-
-def pipeline_frame(rp):
-    """(depth, ids, planes) of the main path's geometry: K1's setup and
-    stream table, then fused_pipeline, as render() runs them."""
-    ps, table = planar_front_table_of(rp)
-    chans, _, prm, lit, tex = shading_inputs(rp, with_attrs=False)
-    return tb.fused_pipeline(ps, None, prm, chans=chans, has_light=lit,
-                             has_texture=tex, width=rp.width,
-                             height=rp.height, pair_budget_factor=BUDGET,
-                             stream_table=table)
-
-
-def replay_ids(rp, transforms):
-    """The main path's geometry captured once on ``transforms[0]`` and
-    replayed on each transform: [(depth, ids, planes)] (copies)."""
-    static_t = transforms[0].clone()
-    crp = dataclasses.replace(rp, transform=static_t)
-    counts = dict(_cuda.launches)
-    pipeline_frame(crp)
-    sync()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = pipeline_frame(crp)
-    _cuda.launches.update(counts)
-    got = []
-    for t in transforms:
-        static_t.copy_(t)
-        graph.replay()
-        got.append(tuple(x.clone() for x in out))
-    sync()
-    return got
-
-
-def timed_turns(fns, passes, n_turns=2):
-    """{name: [ms/frame by CUDA events, ms/frame by the host clock] of
-    each turn}: every fn renders ``passes``, in turns (A B B A ...)."""
-    order = list(fns) + list(fns)[::-1]
-    out = {name: [] for name in fns}
-    for name in order * (n_turns // 2):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
         sync()
-        t0 = time.perf_counter()
-        start.record()
-        fns[name](passes)
-        end.record()
-        sync()
-        out[name].append((start.elapsed_time(end) / len(passes),
-                          (time.perf_counter() - t0) * 1e3 / len(passes)))
-    return out
-
-
-def phase_compiled(dev, card):
-    """14: the compiled frame (module docstring)."""
-    rp = scenes.config4_many_objects(0.0, device=dev)
-    passes = [dataclasses.replace(rp, transform=bench_transform(
-        rp.transform, i)) for i in MAIN_FRAMES]
-    ts = torch.stack([p.transform for p in passes])
-    res = {}
-
-    # (a) Host syncs of the eager routes: counted in "warn" mode, then
-    # each route again in "error" mode.
-    syncs = {}
-    for name, (n, fn) in sync_routes(rp, passes).items():
-        fn()  # warm-up: the constants and the kernel library
-        sync()
-        syncs[name] = sync_count(fn) / n
-        sync_free(fn, name)
-    ttex.TEX_WINDOWED = "adaptive"
-    try:
-        render(passes[0])
-        adaptive = sync_count(lambda: [render(p) for p in passes]) / len(
-            passes)
-    finally:
-        ttex.TEX_WINDOWED = "0"
-    print(f"host syncs per frame under sync debug mode (warn count; every "
-          f"route also ran clean in \"error\" mode): {json.dumps(syncs)}; "
-          f"\"adaptive\" (its one documented predicate read): {adaptive}",
-          flush=True)
-    assert all(v == 0 for v in syncs.values()), syncs
-    assert adaptive <= 1, adaptive
-    res["syncs_per_frame"] = dict(syncs, adaptive=adaptive)
-
-    # (b) Replays equal the eager frames bit for bit: render_batch (one
-    # capture on frame 0, spill frames 120, 240 and 600 replayed) in
-    # modes "0" and "1"; ids through the main path's geometry captured
-    # the same way; the counters hold the launches the device ran.
-    for mode in ("0", "1"):
-        ttex.TEX_WINDOWED = mode
-        try:
-            render(passes[0])
-            reset_counts()
-            eager = [render(p) for p in passes]
-            eager_counts = read_counts(f"eager frames, mode {mode}")
-            reset_counts()
-            fg.reset_routes()
-            batch = render_batch(rp, ts)
-            batch_counts = read_counts(f"render_batch, mode {mode}")
-            routes = dict(fg.routes)
-        finally:
-            ttex.TEX_WINDOWED = "0"
-        assert routes == {"capture": 1, "replay": len(passes) - 1,
-                          "eager": 0}, routes
-        assert batch_counts == eager_counts, (batch_counts, eager_counts)
-        for i, e, j in zip(MAIN_FRAMES, eager, range(len(passes))):
-            for got, want, what in ((batch.color[j][..., 3],
-                                     e.color[..., 3], "alpha"),
-                                    (batch.depth[j], e.depth, "depth"),
-                                    (batch.color[j], e.color, "color")):
-                assert_bit_equal(got, want, f"replayed frame {i} (mode "
-                                            f"{mode}) {what}")
-        print(f"mode {mode}: render_batch of {len(passes)} frames "
-              f"{list(MAIN_FRAMES)} (captured on frame 0, routes "
-              f"{json.dumps(routes)}; captures evicted in the process: "
-              f"{fg.evictions}) equals the eager frames in alpha, "
-              f"depth and color bit for bit; launches equal the eager "
-              f"frames' {json.dumps(batch_counts)}", flush=True)
-    reset_counts()
-    for i, (z, ids, out), p in zip(MAIN_FRAMES, replay_ids(rp, ts), passes):
-        ze, ie, oe = pipeline_frame(p)
-        assert_bit_equal(ids, ie, f"replayed frame {i} ids")
-        assert_bit_equal(z, ze, f"replayed frame {i} geometry depth")
-        assert_bit_equal(out, oe, f"replayed frame {i} planes")
-    print(f"the main path's geometry captured on frame 0 and replayed: "
-          f"ids, depth and planes of every frame equal the eager ones",
-          flush=True)
-
-    # (c) FrameLoop with a transform_fn replays; the camera path replays.
-    loop_ts = [bench_transform(rp.transform, i) for i in range(4)]
-    loop = FrameLoop(lambda t: rp, lambda t: loop_ts[round(t * 60)],
-                     RenderConfig(width=rp.width, height=rp.height,
-                                  time_step=1.0 / 60.0))
-    fg.reset_routes()
-    got = [loop.frame() for _ in loop_ts]
-    assert dict(fg.routes) == {"capture": 1, "replay": 3, "eager": 0}, \
-        fg.routes
-    for i, (fb, t) in enumerate(zip(got, loop_ts)):
-        want = render(dataclasses.replace(rp, transform=t))
-        assert_bit_equal(fb.color, want.color, f"FrameLoop frame {i} color")
-        assert_bit_equal(fb.depth, want.depth, f"FrameLoop frame {i} depth")
-    cams = [scenes.config4_camera(t, device=dev) for t in CAMERA_TIMES[:3]]
-    cam_batch = render_batch(cams[0], torch.stack([c.transform
-                                                   for c in cams]))
-    for j, c in enumerate(cams):
-        want = render(dataclasses.replace(cams[0], transform=c.transform))
-        assert_bit_equal(cam_batch.color[j], want.color,
-                         f"camera frame {j} replayed, color")
-        assert_bit_equal(cam_batch.depth[j], want.depth,
-                         f"camera frame {j} replayed, depth")
-    print(f"FrameLoop (transform_fn, {len(loop_ts)} frames) and "
-          f"render_batch of {len(cams)} camera frames (clip + perspective) "
-          f"replay bit for bit", flush=True)
-
-    # (d) The eager route, counted: the adaptive sampler and a texture
-    # that requires grad.
-    fg.reset_routes()
-    ttex.TEX_WINDOWED = "adaptive"
-    try:
-        render_batch(rp, ts[:2])
-    finally:
-        ttex.TEX_WINDOWED = "0"
-    tex = dataclasses.replace(rp.texture, data=rp.texture.data.clone()
-                              .requires_grad_(True))
-    render_batch(dataclasses.replace(rp, texture=tex), ts[:2])
-    print(f"eager route: render_batch of 2 frames under \"adaptive\" and "
-          f"of 2 with a texture that requires grad: routes "
-          f"{json.dumps(fg.routes)}", flush=True)
-    assert fg.routes["eager"] == 4 and fg.routes["replay"] == 0, fg.routes
-    res["eager_route"] = dict(fg.routes)
-
-    # (e) ms/frame eager against replayed, in turns; device time and
-    # kernels per frame of each.
-    for mode in ("0", "1"):
-        ttex.TEX_WINDOWED = mode
-        try:
-            graph = fg.FrameGraph()
-            sync()
-            t0 = time.perf_counter()
-            graph(passes[0])
-            sync()
-            first_ms = (time.perf_counter() - t0) * 1e3
-            t0 = time.perf_counter()
-            render(passes[0])
-            sync()
-            eager_ms = (time.perf_counter() - t0) * 1e3
-            print(f"mode {mode}: the first frame of a FrameGraph (an eager "
-                  f"frame and the capture) {first_ms} ms, an eager frame "
-                  f"{eager_ms} ms (host clock to synchronize, {card})",
-                  flush=True)
-            res[f"capture_ms_mode_{mode}"] = first_ms
-            fns = {"eager": lambda ps_: [render(p) for p in ps_],
-                   "replay": lambda ps_: [graph(p) for p in ps_]}
-            turns = timed_turns(fns, passes, 4)
-            prof = {name: top_device_ops(lambda f=f: f(passes),
-                                         f"{len(passes)} frames, {name}, "
-                                         f"mode {mode}")
-                    for name, f in fns.items()}
-        finally:
-            ttex.TEX_WINDOWED = "0"
-        for name in fns:
-            ev = [x for x, _ in turns[name]]
-            host = [y for _, y in turns[name]]
-            dev_ms, n_k, n_c = prof[name]
-            res[f"{name}_mode_{mode}"] = dict(
-                ms_events=ev, ms_host=host,
-                device_ms=dev_ms / len(passes),
-                kernels=n_k / len(passes), copies=n_c / len(passes))
-            print(f"mode {mode}, {name}: ms/frame (CUDA events, {card}) "
-                  f"{ev}, host clock {host}; device ms/frame "
-                  f"{dev_ms / len(passes)} in {n_k / len(passes)} kernels "
-                  f"and {n_c / len(passes)} copies a frame (profiled)",
-                  flush=True)
-
-    # (f) Peak memory of render_batch (16 frames) with the graph and of
-    # the same frames rendered eagerly into preallocated outputs.
-    ts16 = torch.stack([bench_transform(rp.transform, i)
-                        for i in range(CHUNK_FRAMES)])
-
-    def eager_batch():
-        color = torch.empty((len(ts16), rp.height, rp.width, 4), device=dev)
-        depth = torch.empty((len(ts16), rp.height, rp.width), device=dev)
-        for i, t in enumerate(ts16):
-            fb = render(dataclasses.replace(rp, transform=t))
-            color[i], depth[i] = fb.color, fb.depth
-            del fb
-        return color, depth
-
-    peak = {}
-    for name, fn in (("render_batch (graph)", lambda: render_batch(rp, ts16)),
-                     ("eager loop", eager_batch)):
-        out = None
-        sync()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        base_mem = torch.cuda.memory_allocated(dev)
-        out = fn()
-        sync()
-        peak[name] = (torch.cuda.max_memory_allocated(dev) - base_mem) / 2**20
-        del out
-    print(f"peak memory above the scene, {CHUNK_FRAMES} frames at "
-          f"{rp.width}x{rp.height} (max_memory_allocated, MiB): "
-          f"{json.dumps(peak)}", flush=True)
-    res["peak_mib"] = peak
-    return res
+        counts[name] = dict(_cuda.launches)
+        print(f"launches on {name}: {json.dumps(counts[name])}", flush=True)
+    return counts
 
 
 def main():
@@ -2669,113 +1116,60 @@ def main():
     res.update(phase_texture_kernels(dev))
     res.update(phase_tail_kernel(dev))
     res.update(phase_camera_kernels(dev))
+    binned_pipeline_k4(spill_frame(dev))
+    launches = path_launches(dev)
     sync()
-    phase_spill(dev)                                         # phase 4
-    sync()
-    launches, main_ms = phase_main(dev, card)                # phase 5
-    sync()
-    phase_small_reference(dev)                               # phase 6
-    sync()
-    backend_launches, _, k4_binned = phase_backends(dev, card)  # phase 7
-    res["resolve_merge"]["binned_pipeline"] = k4_binned
-    sync()
-    mode_launches, _ = phase_windowed_modes(dev, card)       # phase 8
-    sync()
-    phase_training(dev, card)                                # phase 9
-    sync()
-    probe_launches = phase_probe()                           # phase 10
-    sync()
-    camera_launches = phase_camera(dev, card)                # phase 11
-    sync()
-    t12 = time.perf_counter()
-    phase_surface(dev, card)                                 # phase 12
-    sync()
-    print(f"phase 12 took {time.perf_counter() - t12:.1f} s", flush=True)
-    t13 = time.perf_counter()
-    phase_host(dev, card, main_ms)                           # phase 13
-    sync()
-    print(f"phase 13 took {time.perf_counter() - t13:.1f} s", flush=True)
-    t14 = time.perf_counter()
-    phase_compiled(dev, card)                                # phase 14
-    sync()
-    print(f"phase 14 took {time.perf_counter() - t14:.1f} s", flush=True)
 
+    # Per row: the kernel, its source, what it replaces, and the path and
+    # counter that give its launches on its path.
     src = "software_renderer_tpu_torch/csrc/"
+    jax = "software_renderer_tpu/ops/"
     meta = {
-        "fe": ("fe_table_kernel", "fe.cu",
-               "software_renderer_tpu/ops/frontend_kernel.py:42"),
-        "fused": ("fused_kernel", "fused.cu",
-                  "software_renderer_tpu/ops/binning.py:703"),
-        "visibility_merge": ("visibility_merge_kernel",
-                             "visibility_merge.cu",
-                             "software_renderer_tpu/ops/rasterize_pallas.py"
-                             ":110"),
+        "fe": ("fe_table_kernel", "fe.cu", jax + "frontend_kernel.py:42",
+               "main", "fe"),
+        "fused": ("fused_kernel", "fused.cu", jax + "binning.py:703",
+                  "main", "fused"),
+        "visibility_merge": ("visibility_merge_kernel", "visibility_merge.cu",
+                             jax + "rasterize_pallas.py:110", "main",
+                             "visibility_merge"),
         "resolve_merge": ("resolve_merge_kernel", "resolve_merge.cu",
-                          "software_renderer_tpu/ops/binning.py:683"),
+                          jax + "binning.py:683", "main", "resolve_merge"),
         "visibility": ("visibility_kernel", "visibility_merge.cu",
-                       "software_renderer_tpu/ops/rasterize_pallas.py:110"),
+                       jax + "rasterize_pallas.py:110", "pallas",
+                       "visibility"),
         "binned_vis": ("binned_vis_kernel", "fused.cu",
-                       "software_renderer_tpu/ops/binning.py:607"),
-        "resolve": ("resolve_kernel", "resolve.cu",
-                    "software_renderer_tpu/ops/binning.py:663"),
+                       jax + "binning.py:607", "flat", "binned_vis"),
+        "resolve": ("resolve_kernel", "resolve.cu", jax + "binning.py:663",
+                    "binned_pipeline", "resolve"),
         "sampler": ("sampler_kernel", "sampler.cu",
-                    "software_renderer_tpu/ops/texture_kernel.py:226"),
+                    jax + "texture_kernel.py:226", "route 1", "sampler"),
         "window_lookup": ("window_lookup", "probe_gather.cu",
-                          "tools/probe_dyngather.py:97"),
+                          "tools/probe_dyngather.py:97", "probe",
+                          "window_lookup"),
         "take_along_axis": ("take_along_axis", "probe_gather.cu",
-                            "tools/probe_dyngather.py:69"),
+                            "tools/probe_dyngather.py:69", "probe",
+                            "take_along_axis"),
         "fe_persp": ("fe_table_kernel(perspective=True)", "fe.cu",
-                     "software_renderer_tpu/ops/frontend_kernel.py:42"),
+                     jax + "frontend_kernel.py:42", "perspective",
+                     "fe_persp"),
         "fused_persp": ("fused_kernel(perspective=True)", "fused.cu",
-                        "software_renderer_tpu/ops/binning.py:703"),
+                        jax + "binning.py:703", "clip + perspective",
+                        "fused_persp"),
         "fused_persp_seeded": ("fused_kernel(perspective=True, seeds=...)",
-                               "fused.cu",
-                               "software_renderer_tpu/ops/binning.py:703"),
-        "tail": ("tail_kernel", "tail.cu",
-                 "software_renderer_tpu/ops/shading.py:301 (XLA)"),
+                               "fused.cu", jax + "binning.py:703",
+                               "clip + perspective", "fused_persp_seeded"),
+        "tail": ("tail_kernel", "tail.cu", jax + "shading.py:301 (XLA)",
+                 "main", "tail"),
         "tail_uhd": ("tail_kernel (4K, untextured)", "tail.cu",
-                     "software_renderer_tpu/ops/shading.py:301 (XLA)"),
+                     jax + "shading.py:301 (XLA)", "4K", "tail"),
     }
-    # Launches on the path that runs each kernel: the main path for K1-K4,
-    # the pallas backend for K3', flat shading for K5,
-    # binned_pipeline(ps, attrs) for K6, the main path under
-    # SR_TEX_WINDOWED=1 for K7, the probe for K8 and the camera path for
-    # the perspective instances of K1 and K2.
-    path_launches = {k: launches[k] for k in
-                     ("fe", "fused", "visibility_merge", "resolve_merge")}
-    path_launches["visibility"] = backend_launches["pallas"]["visibility"]
-    path_launches["binned_vis"] = backend_launches["flat"]["binned_vis"]
-    path_launches["resolve"] = backend_launches["binned_pipeline"]["resolve"]
-    path_launches["sampler"] = mode_launches["1"]["sampler"]
-    for k in ("window_lookup", "take_along_axis"):
-        path_launches[k] = probe_launches[k]
-    # The camera path's: K1's flag with perspective alone, K2's
-    # perspective plan with clip + perspective in mode "0".
-    path_launches["fe_persp"] = camera_launches["persp_only"]["fe_persp"]
-    for k in ("fused_persp", "fused_persp_seeded"):
-        path_launches[k] = camera_launches["clip_persp_0"][k]
-    # The tail kernel's: the main path's at 1080p, two 4K frames' at 4K.
-    path_launches["tail"] = launches["tail"]
-    path_launches["tail_uhd"] = res["tail_uhd"]["launches_2_frames"]
-    assert all(n > 0 for n in path_launches.values()), path_launches
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "least_ms", "least_by")
     kernels = [dict(name=n, route="cuda", source=src + f, replaces=r,
-                    launches=path_launches[k],
+                    launches=launches[path][counter],
                     **{key: res[k][key] for key in keys})
-               for k, (n, f, r) in meta.items()]
-    # The redesign order of ROADMAP.md: kernels slower than one torch call
-    # first, then by launches on their path x (ms - least_ms).
-    excess = {k["name"]: k["launches"] * (k["ms"] - k["least_ms"])
-              for k in kernels}
-    order = sorted(kernels, key=lambda k: (
-        k["library_ms"] is None or k["ms"] <= k["library_ms"],
-        -excess[k["name"]]))
-    print("redesign order [kernel, slower than one torch call, launches x "
-          "(ms - least_ms)]: " + json.dumps([
-              [k["name"], k["library_ms"] is not None
-               and k["ms"] > k["library_ms"], excess[k["name"]]]
-              for k in order]), flush=True)
+               for k, (n, f, r, path, counter) in meta.items()]
+    assert all(k["launches"] > 0 for k in kernels), kernels
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

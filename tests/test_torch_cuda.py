@@ -1,5 +1,9 @@
-"""PyTorch port on the card: each CUDA kernel against its plain version
-on the same CUDA inputs, at small sizes. Every test carries the ``cuda``
+"""PyTorch port on the card: the one place that checks it is right there.
+Each CUDA kernel against its plain version on the same CUDA inputs, and
+each route's frames against the CPU's, against each other and free of
+host syncs, at small sizes (config 4 at full size where the size is the
+point). A kernel's time against its least time is chip_smoke.py's, and
+end-to-end times are the benchmark's. Every test carries the ``cuda``
 marker and skips without a GPU.
 
 This file imports no JAX, so it runs on a machine with a card and no JAX:
@@ -184,13 +188,16 @@ def test_fused_and_overflow_kernels_match_plain(bands):
 
 
 @pytest.mark.parametrize("bands", [1, 4])
-def test_backend_kernels_match_plain(bands):
-    """K3' (clear mode), K5 and K6 against their plain versions, and the
+def test_backend_kernels_match_plain(bands, monkeypatch):
+    """K3' (clear mode), K5 and K6 against their plain versions; the
     unbinned record walk against the binned pass (K5, then K3 and K4 on
-    the kmax=1 spill) bit for bit."""
+    the kmax=1 spill) and the fused path (K2 seeded from K3 and K4 on the
+    same spill) bit for bit in depth and id; binned_pipeline's G-buffer
+    equal to K6's planes with the plain K4 applied in place on the inputs
+    of its own K4 call."""
     rp = scenes.config4_many_objects(0.0, width=320, height=192,
                                      triangles=3000, device="cuda")
-    ps, _, attrs, _, _, _ = triangle_inputs(rp)
+    ps, chans, attrs, prm, lit, tex = triangle_inputs(rp)
     w, h = rp.width, rp.height
     geo = dict(width=w, height=h, bands=bands)
     info = tb.build_bins(ps, width=w, height=h, bands=bands)
@@ -210,13 +217,32 @@ def test_backend_kernels_match_plain(bands):
     assert _equal(ik, ip) and _equal(zk, zp)
     assert float((gk - gp).abs().max()) <= PLANE_TOL
     assert _equal(iv, ivp) and _equal(zv, zvp)
+    calls = []
+    kernel = tb.resolve_merge_kernel
+
+    def record(rows, tid, gb_in, **kw):
+        calls.append((rows, tid, gb_in.clone(), dict(kw)))
+        return kernel(rows, tid, gb_in, **kw)
+
     _cuda.reset_launches()
-    d, i, g = tb.binned_pipeline(ps, attrs, width=w, height=h, kmax=1)
+    with monkeypatch.context() as m:
+        m.setattr(tb, "resolve_merge_kernel", record)
+        d, i, g = tb.binned_pipeline(ps, attrs, width=w, height=h, kmax=1)
     torch.cuda.synchronize()
     for k in ("binned_vis", "visibility_merge", "resolve", "resolve_merge"):
         assert _cuda.launches[k] == 1, _cuda.launches
     assert _equal(i, iv) and _equal(d, zv)
     assert g.shape == (h, w, a) and bool(torch.isfinite(g).all())
+    (ov_rows, tid, g6, k4), = calls
+    assert k4.pop("inplace"), "binned_pipeline's K4 copies its seed"
+    gp = tb.resolve_merge_plain(ov_rows, tid, g6.clone(), inplace=True, **k4)
+    d2, i2, _ = tb.fused_pipeline(ps, attrs, prm, width=w, height=h,
+                                  chans=chans, has_light=lit,
+                                  has_texture=tex, kmax=1, bands=bands)
+    torch.cuda.synchronize()
+    assert _equal(g.permute(2, 0, 1), gp)
+    assert _cuda.launches["fused_seeded"] == 1
+    assert _equal(i2, iv) and _equal(d2, zv)
 
 
 def _px_corners(px, py, z):
@@ -488,12 +514,21 @@ def _scene(name):
             light=None)
     if name == "config3":          # lit, untextured
         return scenes.config3_phong_mesh(0.5, width=256, height=256, **cpu)
+    if name == "config3_generated":  # the teapot generator, no asset
+        obj = scenes.TEAPOT_OBJ
+        scenes.TEAPOT_OBJ = obj.with_name("no_such_teapot.obj")
+        try:
+            return scenes.config3_phong_mesh(0.5, width=256, height=256,
+                                             **cpu)
+        finally:
+            scenes.TEAPOT_OBJ = obj
     return scenes.config4_many_objects(0.0, width=320, height=192,
                                        triangles=3000, **cpu)
 
 
 @pytest.mark.parametrize("name", ["config1", "config2", "config2_unlit",
-                                  "config3", "config4"])
+                                  "config3", "config3_generated",
+                                  "config4"])
 def test_render_on_card_matches_cpu(name):
     rp = _scene(name)
     fb_c = render(rp)
@@ -691,17 +726,22 @@ def test_sampler_backward_matches_plain_autograd():
         assert float((gk - gp).abs().max()) <= 1e-5
 
 
-@pytest.mark.parametrize("name", ["config2", "config4"])
+@pytest.mark.parametrize("name", ["config2", "config4", "config4_adaptive"])
 def test_render_windowed_on_card_matches_cpu(name, monkeypatch):
+    """Route "1" (K7 once a frame) and route "adaptive" on the card
+    against the CPU's frame of the same route."""
     rp = scenes.config4_many_objects(0.0, width=256, height=192,
                                      triangles=3000, device="cpu") \
-        if name == "config4" else _scene("config2")
-    monkeypatch.setattr(ttex, "TEX_WINDOWED", "1")
+        if name.startswith("config4") else _scene("config2")
+    adaptive = name.endswith("adaptive")
+    monkeypatch.setattr(ttex, "TEX_WINDOWED", "adaptive" if adaptive
+                        else "1")
     fb_c = render(rp)
     _cuda.reset_launches()
     fb_g = render(rp.to("cuda"))
     torch.cuda.synchronize()
-    assert _cuda.launches["sampler"] == 1
+    if not adaptive:
+        assert _cuda.launches["sampler"] == 1
     cg, dg = fb_g.color.cpu(), fb_g.depth.cpu()
     assert bool(fb_c.color[..., 3].any())
     assert _equal(cg[..., 3], fb_c.color[..., 3])
@@ -713,7 +753,9 @@ def test_render_windowed_on_card_matches_cpu(name, monkeypatch):
 def test_texture_train_step_on_card_matches_cpu(mode, monkeypatch):
     """One step at config 2 (128x128, 2 frames): the card's new texture
     within 1e-5 of the CPU's (the gradient's index-adds sum in another
-    order; lr 5000 moves texels by up to ~0.02)."""
+    order; lr 5000 moves texels by up to ~0.02); in route "1" also within
+    1e-5 of the card's route-"0" step. Over three more steps on the card
+    the loss falls at every step."""
     monkeypatch.setattr(ttex, "TEX_WINDOWED", mode)
     rp = scenes.config2_textured_cube(0.1, width=128, height=128,
                                       device="cpu")
@@ -722,14 +764,24 @@ def test_texture_train_step_on_card_matches_cpu(mode, monkeypatch):
     targets = render_batch(rp, ts).color
     tex0 = torch.full_like(rp.texture.data, 0.5)
     new_c, loss_c = texture_train_step(tex0, rp, ts, targets, lr=5000.0)
+    card = (rp.to("cuda"), ts.cuda(), targets.cuda())
     _cuda.reset_launches()
-    new_g, loss_g = texture_train_step(tex0.cuda(), rp.to("cuda"),
-                                       ts.cuda(), targets.cuda(), lr=5000.0)
+    new_g, loss_g = texture_train_step(tex0.cuda(), *card, lr=5000.0)
     torch.cuda.synchronize()
     assert _cuda.launches["sampler"] == (2 if mode == "1" else 0)
     assert float((new_c - tex0).abs().max()) > 1e-2
     assert abs(float(loss_g) - float(loss_c)) <= 1e-5 * float(loss_c)
     assert float((new_g.cpu() - new_c).abs().max()) <= 1e-5
+    if mode == "1":
+        with monkeypatch.context() as m:
+            m.setattr(ttex, "TEX_WINDOWED", "0")
+            new_0, _ = texture_train_step(tex0.cuda(), *card, lr=5000.0)
+        assert float((new_g - new_0).abs().max()) <= 1e-5
+    losses, tex = [float(loss_g)], new_g
+    for _ in range(3):
+        tex, loss = texture_train_step(tex, *card, lr=5000.0)
+        losses.append(float(loss))
+    assert all(b < a for a, b in zip(losses, losses[1:])), losses
 
 
 def test_geometry_grads_on_card_warn_and_zero():
@@ -994,23 +1046,46 @@ def test_camera_render_on_card_matches_cpu(name, backend, kernels):
 
 
 def test_clipped_flat_frame_binned_equals_record_walk():
-    """K5 over the clip's [2T] setup (config 4's cut camera scene, flat
-    shading): the binned pass with K3 on its spills equals the record
-    walk K3' on every record, bit for bit."""
+    """Over the clip's [2T] setup (config 4's cut camera scene): K5 (flat
+    shading, the binned pass with K3 on its spills) and K2's perspective
+    plan (the textured camera frame, seeded from K3 and K4) equal the
+    record walk K3' on every record, bit for bit in depth and id."""
     rp = scenes.config4_camera(0.0, width=320, height=180, triangles=3000,
                                device="cuda")
     setup, _, _ = clip_front(
         rp.mesh.positions[rp.mesh.triangles().long()], rp.transform,
         rp.width, rp.height, cull_backfaces=True)
+    _, pv, chans, prm, lit, tex = clip_inputs(rp)
     _cuda.reset_launches()
     d5, i5 = tb.visibility_binned(setup, width=320, height=180)
     d3, i3 = visibility_kernel(fe.pack_records_planar(fe.from_setup(setup),
                                                       128),
                                width=320, height=180)
+    d2, i2, _ = tb.fused_pipeline(setup, pv, prm, width=320, height=180,
+                                  chans=chans, has_light=lit,
+                                  has_texture=tex, perspective=True)
     torch.cuda.synchronize()
     assert _cuda.launches["binned_vis"] == 1
+    assert _cuda.launches["fused_persp"] == 1
     assert bool((i5 >= 0).any())
     assert _equal(i5, i3) and _equal(d5, d3)
+    assert _equal(i2, i3) and _equal(d2, d3)
+
+
+def test_clip_is_a_no_op_in_front_on_card():
+    """Config 4's own frame has every corner in front of the near plane,
+    so on the card it renders bit for bit the same with and without
+    clip_near, with perspective-correct attributes off and on."""
+    rp = scenes.config4_many_objects(0.0, width=320, height=192,
+                                     triangles=3000, device="cuda")
+    for persp in (False, True):
+        base = dataclasses.replace(rp, perspective_correct=persp)
+        plain = render(base)
+        clipped = render(dataclasses.replace(base, clip_near=True))
+        torch.cuda.synchronize()
+        assert bool(plain.color[..., 3].any())
+        assert _equal(clipped.color, plain.color), persp
+        assert _equal(clipped.depth, plain.depth), persp
 
 
 def test_perspective_wrappers_raise_on_bad_input():
@@ -1333,27 +1408,99 @@ def _sync_free(fn):
         torch.cuda.set_sync_debug_mode("default")
 
 
-@pytest.mark.parametrize("mode", ["0", "1"])
-@pytest.mark.parametrize("name", ["config4", "config2_kmax1"])
+def _sync_count(fn):
+    """(``fn()``, the host syncs sync debug mode "warn" reports in it)."""
+    with warnings.catch_warnings(record=True) as got:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("called a synchronizing" in str(w.message) for w in got)
+
+
+def _sync_route(name):
+    """(CPU RenderPass, route) of a host-sync case: the route renders the
+    pass on its own device as one public entry does."""
+    from software_renderer_tpu_torch.render import render_rows
+    from software_renderer_tpu_torch.parallel.sharding import (
+        make_mesh, render_sharded)
+    if name == "config2_kmax1":
+        return scenes.config2_textured_cube(0.7, width=256, height=192,
+                                            device="cpu"), render
+    if name == "camera":
+        return scenes.config4_camera(0.0, width=256, height=144,
+                                     triangles=3000, device="cpu"), render
+    rp = scenes.config4_many_objects(0.0, width=384, height=192,
+                                     triangles=3000, device="cpu")
+    if name == "flat":
+        return dataclasses.replace(rp, shading="flat"), render
+    if name == "rows":
+        return rp, lambda p: render_rows(p, 37, 100)
+    if name == "binned_pipeline":       # with attributes, from K1's table
+        def pipeline(p):
+            ps, table = planar_front_table_of(p)
+            return tb.binned_pipeline(ps, None, width=p.width,
+                                      height=p.height, stream_table=table,
+                                      pair_budget_factor=0.85)
+        return rp, pipeline
+    if name == "sharded":               # a 1 x 2 mesh, the split front-end
+        turn = tf.rotation_matrix(tf.quat_from_axis_angle(
+            tf.normalize(torch.tensor([1.0, 1.0, 0.0])), torch.tensor(0.5)))
+        made = {}                       # built once per device: a copy to
+        # the card inside the route would be a host sync of its own
+
+        def sharded(p):
+            dev = p.transform.device
+            if dev not in made:
+                made[dev] = (torch.stack([p.transform,
+                                          p.transform @ turn.to(dev)]),
+                             make_mesh(1, 2, [dev, dev]))
+            return render_sharded(p, *made[dev])
+        return rp, sharded
+    return rp, render
+
+
+@pytest.mark.parametrize("name,mode", [
+    ("config4", "0"), ("config4", "1"), ("config2_kmax1", "0"),
+    ("config2_kmax1", "1"), ("config4", "adaptive"), ("camera", "0"),
+    ("camera", "1"), ("flat", "0"), ("binned_pipeline", "0"), ("rows", "0"),
+    ("sharded", "0")])
 def test_render_makes_no_host_sync(name, mode, monkeypatch):
     """render() of a spill-free frame (config 4 cut down) and of a frame
     whose multi-bin triangles all spill (config 2 with kmax 1), with
-    either sampler route, syncs nothing with the host; the frames equal
+    either sampler route, syncs nothing with the host, and "adaptive"
+    only its one predicate read; nor do the camera path (clip +
+    perspective) in either route, flat shading, binned_pipeline with
+    attributes, a render_rows band and render_sharded. The frames equal
     the CPU's."""
     monkeypatch.setattr(ttex, "TEX_WINDOWED", mode)
     if name == "config2_kmax1":
         monkeypatch.setattr(tb, "KMAX", 1)
-        rp = scenes.config2_textured_cube(0.7, width=256, height=192,
-                                          device="cpu")
-    else:
-        rp = scenes.config4_many_objects(0.0, width=384, height=192,
-                                         triangles=3000, device="cpu")
+    rp, route = _sync_route(name)
     card = rp.to("cuda")
-    n_ov = int(_render_bins(card).n_overflow)
-    assert (n_ov > 0) == (name == "config2_kmax1"), n_ov
-    fb_g = _sync_free(lambda: render(card))
+    if name in ("config4", "config2_kmax1"):
+        n_ov = int(_render_bins(card).n_overflow)
+        assert (n_ov > 0) == (name == "config2_kmax1"), n_ov
+    _cuda.reset_launches()
+    if mode == "adaptive":
+        route(card)
+        torch.cuda.synchronize()
+        got, n_sync = _sync_count(lambda: route(card))
+        assert n_sync <= 1, n_sync
+    else:
+        got = _sync_free(lambda: route(card))
     torch.cuda.synchronize()
-    _card_equals_cpu(render(rp), fb_g, f"{name} mode {mode}")
+    if mode == "1":
+        assert _cuda.launches["sampler"] > 0, dict(_cuda.launches)
+    want = route(rp)
+    if name == "binned_pipeline":       # (depth, ids, G-buffer)
+        assert _equal(got[0].cpu(), want[0]) and bool((want[1] >= 0).any())
+        assert _equal(got[1].cpu(), want[1])
+        assert float((got[2].cpu() - want[2]).abs().max()) <= PLANE_TOL
+    else:
+        _card_equals_cpu(want, got, f"{name} mode {mode}")
 
 
 @pytest.mark.parametrize("bands", [1, 4])
@@ -1429,7 +1576,9 @@ def test_count_kernels_match_plain(bands):
     torch.cuda.synchronize()
     assert _equal(is_, isp) and _equal(zs, zsp)
     assert float((os_ - osp).abs().max()) <= PLANE_TOL
+    # The spill frame equals the spill-free one.
     assert _equal(is_, static[1]) and _equal(zs, static[0])
+    assert float((os_ - static[2]).abs().max()) <= PLANE_TOL
 
 
 def _k4_inputs(case):
@@ -1591,7 +1740,9 @@ def test_frame_graph_replays_spill_frames(mode, monkeypatch):
 def test_frame_graph_eager_routes_are_counted():
     """A texture that requires grad and the "adaptive" sampler render
     eagerly, counted; FrameLoop with a transform_fn replays, and its
-    frames are its own (a later frame does not overwrite them)."""
+    frames are its own (a later frame does not overwrite them);
+    render_batch of camera frames (clip + perspective) replays them bit
+    for bit."""
     from software_renderer_tpu_torch.parallel import frame_graph as fg
     from software_renderer_tpu_torch.utils.config import RenderConfig
     from software_renderer_tpu_torch.utils.display import FrameLoop
@@ -1618,6 +1769,39 @@ def test_frame_graph_eager_routes_are_counted():
     for i, fb in enumerate(frames):
         want = render(_config4_loop_scene(0.5 * i))
         assert _equal(fb.color, want.color) and _equal(fb.depth, want.depth)
+    cam, ts, _ = _layer_case("camera", None)
+    fg.reset_routes()
+    got = render_batch(cam, ts)
+    torch.cuda.synchronize()
+    assert fg.routes["replay"] >= len(ts) - 1 and fg.routes["eager"] == 0
+    for i, t in enumerate(ts):
+        want = render(dataclasses.replace(cam, transform=t))
+        assert _equal(got.color[i], want.color), i
+        assert _equal(got.depth[i], want.depth), i
+
+
+def test_profiling_trace_holds_spans_and_kernels(tmp_path):
+    """profiling.trace around two main-path frames on the card writes a
+    Chrome trace that holds sr.render once a frame, the layer spans and
+    K2's launches."""
+    import json
+    from software_renderer_tpu_torch.utils import profiling
+    rps = [_config4_loop_scene(t) for t in (0.0, 0.5)]
+    render(rps[0])
+    with profiling.trace(str(tmp_path)) as log_dir:
+        for rp in rps:
+            render(rp)
+        torch.cuda.synchronize()
+    with open(f"{log_dir}/{profiling.TRACE_FILE}") as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e["name"] for e in events
+             if e.get("name", "").startswith(profiling.PREFIX)]
+    k2 = [e for e in events if e.get("cat") == "kernel"
+          and "walk_kernel<true" in e.get("name", "")]
+    assert spans.count("sr.render") == 2, spans
+    assert {f"sr.{k}" for k in ("front", "bins", "spill", "raster",
+                                "texture_tail")} <= set(spans), spans
+    assert len(k2) >= 2, "no K2 launch in the trace"
 
 
 def _replays_by_layer(fn):
