@@ -20,6 +20,16 @@ flags, the backend, the sampler route and the data pointers of the
 mesh, texture, light, model and flat colour, whose memory the graph
 reads at every replay. A new key means a new capture.
 
+A caller whose pass is fixed but for its transform (utils/display.py's
+``FrameLoop``) passes the transform apart, ``graph(rp, transform=t)``,
+and the same pass object each frame: a call that repeats the last call's
+pass so, under the same backend and sampler route, with no tensor of the
+pass or of the transform requiring grad and a transform of the same
+shape and dtype, replays the last call's capture without building its
+key. The pass is then taken as unchanged since that call: a tensor of it
+swapped for another, or a CPU flat colour edited in place, is seen only
+by a call with a new pass object.
+
 A FrameGraph keeps each capture until it holds more than
 :data:`MAX_CAPTURES`, then drops the least recently used one. A kept
 capture keeps its pass alive (mesh, texture, light and model: the
@@ -47,12 +57,17 @@ and a replay calls no wrapper: the launches a capture records are taken
 back out of the counters and credited again on each replay, so the
 counters hold the launches the device ran.
 
-Spans (utils/profiling.py): ``sr.frame_graph.capture`` around a key's
-first frame and its capture, and ``sr.frame_graph.replay|<layer map>``
-around each replay. Every capture records its layer map, the graph's
-nodes by layer in their order, and a replay's span carries it in its
-name, so a profiler's trace splits each replay's device operations by
-layer.
+Spans (utils/profiling.py): ``sr.frame_graph.key`` around the host work
+a frame pays before anything launches (whether a graph can hold it, its
+key and the capture's lookup, or the check that the pass repeats),
+``sr.frame_graph.capture`` around a key's first frame and its capture,
+and ``sr.frame_graph.replay|<layer map>``
+around each replay, which holds the transform's copy and, nested in it,
+``sr.frame_graph.launch`` around the graph's launch alone: the replay's
+host time less the launch's is the copy's. Every capture records its
+layer map, the graph's nodes by layer in their order, and a replay's
+span carries it in its name, so a profiler's trace splits each
+replay's device operations by layer.
 """
 
 from __future__ import annotations
@@ -113,12 +128,16 @@ def _parts(rp: RenderPass) -> dict:
     return parts
 
 
+def _tensors(rp: RenderPass) -> list:
+    """The pass's tensors but its transform."""
+    return [t for t in _parts(rp).values() if isinstance(t, torch.Tensor)]
+
+
 def capturable(rp: RenderPass, backend: str) -> bool:
     """Whether a graph can hold ``render(rp, backend)``: triangles on
     ``auto``/``binned`` on the card, no input that requires grad, and a
     sampler route other than ``"adaptive"``."""
-    tensors = [t for t in _parts(rp).values()
-               if isinstance(t, torch.Tensor)] + [rp.transform]
+    tensors = _tensors(rp) + [rp.transform]
     return (rp.primitive == "triangle" and backend in _BACKENDS
             and rp.mesh.positions.is_cuda
             and not any(t.requires_grad for t in tensors)
@@ -154,6 +173,26 @@ class _Capture:
     replay_span: str             # the replay's span, the map in its name
 
 
+@dataclasses.dataclass
+class _Repeat:
+    """What a call that passed its transform apart leaves for the next:
+    its pass object and what its capture was found under."""
+    rp: RenderPass
+    backend: str
+    route: str                   # texture.TEX_WINDOWED
+    tensors: list                # the pass's, for requires_grad
+    shape: torch.Size            # the transform's shape and dtype
+    dtype: torch.dtype
+    cap: _Capture
+
+    def holds(self, rp: RenderPass, backend: str, t: torch.Tensor) -> bool:
+        return (rp is self.rp and backend == self.backend
+                and texture.TEX_WINDOWED == self.route
+                and t.shape == self.shape and t.dtype == self.dtype
+                and not t.requires_grad
+                and not any(x.requires_grad for x in self.tensors))
+
+
 class FrameGraph:
     """``render(rp, backend)`` per transform, replayed from one CUDA
     graph per key (the module docstring). Calling it returns the frame's
@@ -169,33 +208,64 @@ class FrameGraph:
         self._captures: collections.OrderedDict = collections.OrderedDict()
         self._pool = None
         self._streams: dict = {}      # the capture stream of each device
+        self._repeat = None           # a _Repeat, or None
 
-    def __call__(self, rp: RenderPass, backend: str = "auto") -> Framebuffer:
+    def __call__(self, rp: RenderPass, backend: str = "auto",
+                 transform: torch.Tensor | None = None) -> Framebuffer:
+        """The frame of ``rp``, under ``transform`` in place of
+        ``rp.transform`` where it is given (the module docstring)."""
         global evictions
-        if not capturable(rp, backend):
+        last, self._repeat = self._repeat, None
+        t = rp.transform if transform is None else transform
+        with span("sr.frame_graph.key"):
+            if (transform is not None and last is not None
+                    and last.holds(rp, backend, t)):
+                cap = last.cap
+            else:
+                last = None
+                whole = (rp if transform is None
+                         else dataclasses.replace(rp, transform=t))
+                graphed = capturable(whole, backend)
+                if graphed:
+                    key = _key(whole, backend)
+                    cap = self._captures.get(key)
+        if last is not None:
+            # The last call's capture, still the most recently used.
+            self._repeat = last
+        elif not graphed:
             routes["eager"] += 1
-            return render(rp, backend)
-        key = _key(rp, backend)
-        cap = self._captures.get(key)
-        if cap is None:
+            return render(whole, backend)
+        elif cap is None:
             with span("sr.frame_graph.capture"):
-                fb = render(rp, backend)
-                self._captures[key] = self._capture(rp, backend)
+                fb = render(whole, backend)
+                cap = self._captures[key] = self._capture(whole, backend)
             routes["capture"] += 1
             # Dropped after the new capture is in, so that the pool keeps
             # a live graph.
             while len(self._captures) > MAX_CAPTURES:
                 self._captures.popitem(last=False)
                 evictions += 1
+            self._remember(rp, backend, transform, cap)
             return fb
-        self._captures.move_to_end(key)
+        else:
+            self._captures.move_to_end(key)
+            self._remember(rp, backend, transform, cap)
         with span(cap.replay_span):
-            cap.transform.copy_(rp.transform)
-            cap.graph.replay()
+            cap.transform.copy_(t)
+            with span("sr.frame_graph.launch"):
+                cap.graph.replay()
         for k, n in cap.launches.items():
             _cuda.launches[k] += n
         routes["replay"] += 1
         return cap.out
+
+    def _remember(self, rp: RenderPass, backend: str,
+                  transform: torch.Tensor | None, cap: _Capture) -> None:
+        """Keep a call that passed its transform apart for a repeat."""
+        if transform is not None:
+            self._repeat = _Repeat(rp, backend, texture.TEX_WINDOWED,
+                                   _tensors(rp), transform.shape,
+                                   transform.dtype, cap)
 
     def _capture(self, rp: RenderPass, backend: str) -> _Capture:
         if not self._captures:

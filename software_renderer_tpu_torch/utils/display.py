@@ -12,7 +12,9 @@ Given a ``transform_fn``, the loop replays one captured frame per
 transform (parallel/frame_graph.py), as JAX runs its jitted ``render``;
 ``render`` makes no host sync either way, so the host queues frame N
 while the device still renders frame N-1, and how much of the sink the
-device hides is a measurement (``chip_smoke.py`` phase 13), not a given.
+device hides is a measurement, not a given: the benchmark's viewer cells
+read the device's idle time inside ``sr.frame_loop.frame``
+(``frame_idle_ms.view``, ``frame_idle_ms.teapot``).
 """
 
 from __future__ import annotations
@@ -44,6 +46,8 @@ class FrameLoop:
     transform changes (through transform_fn(time)) when one is given,
     and the frames replay one captured frame (without supersampling;
     parallel/frame_graph.py), else scene_fn builds each frame, eagerly.
+    The pass scene_fn built is taken as unchanged between frames: only
+    the first frame builds the capture's key.
     """
 
     def __init__(self, scene_fn: Callable[[float], RenderPass],
@@ -63,21 +67,25 @@ class FrameLoop:
         of the graph's outputs. Spans: ``sr.frame_loop.frame`` around the
         frame, ``sr.frame_loop.copy_out`` around the copy."""
         with span("sr.frame_loop.frame"):
-            if self._transform_fn is not None:
-                rp = dataclasses.replace(
-                    self._rp, transform=self._transform_fn(self.time))
-            else:
-                rp = self._scene_fn(self.time)
-            if self.config.msaa > 1:
-                fb = render_msaa(rp, samples=self.config.msaa,
-                                 backend=self.config.backend)
-            elif self._transform_fn is not None:
-                fb = self._graph(rp, backend=self.config.backend)
+            if self._transform_fn is not None and self.config.msaa <= 1:
+                # The same pass each frame, its transform apart: the graph
+                # replays without building the pass's key again.
+                fb = self._graph(self._rp, backend=self.config.backend,
+                                 transform=self._transform_fn(self.time))
                 with span("sr.frame_loop.copy_out"):
                     fb = Framebuffer(color=fb.color.clone(),
                                      depth=fb.depth.clone())
             else:
-                fb = render(rp, backend=self.config.backend)
+                if self._transform_fn is not None:
+                    rp = dataclasses.replace(
+                        self._rp, transform=self._transform_fn(self.time))
+                else:
+                    rp = self._scene_fn(self.time)
+                if self.config.msaa > 1:
+                    fb = render_msaa(rp, samples=self.config.msaa,
+                                     backend=self.config.backend)
+                else:
+                    fb = render(rp, backend=self.config.backend)
             self.time += self.config.time_step
             return fb
 

@@ -1780,6 +1780,120 @@ def test_frame_graph_eager_routes_are_counted():
         assert _equal(got.depth[i], want.depth), i
 
 
+def _teapot_loop(monkeypatch, step):
+    """FrameLoop over config 3 at its published 1024x1024 on the card,
+    frame i under ``scenes.config3_phong_mesh``'s transform at i * step
+    seconds; the times it rendered; and the triangle ids the texture
+    tail reads, each render's appended (a replay calls no Python: the
+    captured tensor, the last appended by the capture, is the graph's,
+    which each replay writes again)."""
+    import importlib
+    from software_renderer_tpu_torch.utils.config import RenderConfig
+    from software_renderer_tpu_torch.utils.display import FrameLoop
+    rmod = importlib.import_module("software_renderer_tpu_torch.render")
+    tail, ids, times = rmod.texture_tail, [], []
+
+    def kept(out, tri_id, **kw):
+        ids.append(tri_id)
+        return tail(out, tri_id, **kw)
+
+    def transform(t):
+        times.append(t)
+        return scenes.config3_phong_mesh(t, device="cuda").transform
+    monkeypatch.setattr(rmod, "texture_tail", kept)
+    rp = scenes.config3_phong_mesh(0.0, device="cuda")
+    loop = FrameLoop(lambda t: rp, transform,
+                     RenderConfig(width=1024, height=1024, time_step=step))
+    return rp, loop, times, ids
+
+
+def test_teapot_frame_loop_replays_equal_eager(monkeypatch):
+    """Config 3 at 1024x1024, unculled (the 3.0T pair budget), through
+    FrameLoop with a transform_fn: one capture, its key built once, then
+    replays whose colour, depth and triangle ids equal eager render's
+    bit for bit, and no triangle spills."""
+    from software_renderer_tpu_torch.parallel import frame_graph as fg
+    rp, loop, times, ids = _teapot_loop(monkeypatch, 0.9)
+    assert not rp.cull_backfaces and rp.width == rp.height == 1024
+    keys, key = [], fg._key
+    monkeypatch.setattr(fg, "_key", lambda p, b: keys.append(b) or key(p, b))
+    fg.reset_routes()
+    tb.reset_spill_counts("cuda")
+    loop.frame()
+    static = ids[-1]
+    got = []
+    for _ in range(5):
+        fb = loop.frame()
+        got.append((fb.color.clone(), fb.depth.clone(), static.clone()))
+    torch.cuda.synchronize()
+    assert fg.routes == {"capture": 1, "replay": 5, "eager": 0}
+    assert len(keys) == 1
+    # The capture's eager frame and the replays bin; the capture runs
+    # nothing.
+    spilled = tb.spill_counts("cuda")
+    assert spilled == {"frames": 6, "budget": 0, "kmax": 0, "unsafe": 0}
+    for t, (color, depth, tid) in zip(times[1:], got):
+        want = render(dataclasses.replace(
+            rp, transform=scenes.config3_phong_mesh(
+                t, device="cuda").transform))
+        assert _equal(color, want.color) and _equal(depth, want.depth), t
+        assert _equal(tid, ids[-1]), t
+        assert int((tid >= 0).sum()) > 100_000, t
+
+
+def test_teapot_replay_span_holds_its_launch(monkeypatch):
+    """Profiled teapot frames: each frame holds the key span, then the
+    replay span, which holds the transform's copy and, nested after it,
+    sr.frame_graph.launch around the graph launch alone; the replay's
+    layer map still counts its device operations."""
+    import json
+    import os
+    import tempfile
+    _, loop, _, _ = _teapot_loop(monkeypatch, 0.3)
+    loop.frame()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            loop.frame()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            evs = [e for e in json.load(f)["traceEvents"]
+                   if e.get("ph") == "X"]
+    finally:
+        os.unlink(path)
+    within = lambda e, s: (e["tid"] == s["tid"] and s["ts"] <= e["ts"]
+                           and e["ts"] + e.get("dur", 0)
+                           <= s["ts"] + s["dur"])
+    named = lambda p: sorted((e for e in evs
+                              if e.get("cat") == "user_annotation"
+                              and e["name"].startswith(p)),
+                             key=lambda e: e["ts"])
+    runtime = lambda word: [e for e in evs if e.get("cat") in (
+        "cuda_runtime", "cuda_driver") and word in e["name"]]
+    frames, keys = named("sr.frame_loop.frame"), named("sr.frame_graph.key")
+    replays = named("sr.frame_graph.replay|")
+    launches = named("sr.frame_graph.launch")
+    graph, copies = runtime("GraphLaunch"), runtime("Memcpy")
+    assert len(frames) == len(keys) == len(replays) == len(launches) == 3
+    for fr, key, rep, lau in zip(frames, keys, replays, launches):
+        assert within(key, fr) and within(rep, fr) and within(lau, rep)
+        assert key["ts"] + key["dur"] <= rep["ts"]
+        inside = [g for g in graph if within(g, rep)]
+        assert len(inside) == 1 and within(inside[0], lau)
+        copy = [c for c in copies if within(c, rep)]
+        assert copy and not any(within(c, lau) for c in copy)
+    for layers, ops in _replays_by_layer(lambda: [loop.frame()
+                                                  for _ in range(2)]):
+        assert [k for k, _ in layers] == ["front", "bins", "spill",
+                                          "raster", "texture_tail"]
+        assert sum(n for _, n in layers) == len(ops), (layers, len(ops))
+
+
 def test_profiling_trace_holds_spans_and_kernels(tmp_path):
     """profiling.trace around two main-path frames on the card writes a
     Chrome trace that holds sr.render once a frame, the layer spans and

@@ -287,6 +287,36 @@ def test_layer_spans_partition_render(tmp_path, clip):
     assert all(sum(inside(op, s) for s in layers) == 1 for op in ops)
 
 
+def test_frame_loop_opens_the_key_span_inside_its_frame(tmp_path):
+    """Under torch.profiler each FrameLoop frame with a transform_fn
+    holds one sr.frame_graph.key span, the FrameGraph's host work before
+    a launch, ahead of the frame's render; on the CPU the graph renders
+    eagerly, so no launch span opens."""
+    from software_renderer_tpu_torch.parallel import frame_graph as fg
+    loop = FrameLoop(_sphere, transform_fn=lambda t: _sphere(t).transform,
+                     config=RenderConfig(width=32, height=32))
+    fg.reset_routes()
+    with profiling.trace(str(tmp_path)):
+        for _ in range(2):
+            loop.frame()
+    assert fg.routes == {"capture": 0, "replay": 0, "eager": 2}
+    with open(tmp_path / profiling.TRACE_FILE) as f:
+        spans = sorted((e for e in json.load(f)["traceEvents"]
+                        if e.get("ph") == "X"
+                        and e.get("cat") == "user_annotation"
+                        and e["name"].startswith(profiling.PREFIX)),
+                       key=lambda e: e["ts"])
+    frames = [s for s in spans if s["name"] == "sr.frame_loop.frame"]
+    keys = [s for s in spans if s["name"] == "sr.frame_graph.key"]
+    renders = [s for s in spans if s["name"] == "sr.render"]
+    assert len(frames) == len(keys) == len(renders) == 2
+    for frame, key, rend in zip(frames, keys, renders):
+        assert frame["ts"] <= key["ts"] and (
+            key["ts"] + key["dur"] <= rend["ts"]
+            <= rend["ts"] + rend["dur"] <= frame["ts"] + frame["dur"])
+    assert not any(s["name"] == "sr.frame_graph.launch" for s in spans)
+
+
 def test_capture_layer_map_counts_every_operation():
     """The layer map a capture records, with each operator of a CPU
     render standing in for a graph node: every operator in a layer, the

@@ -211,19 +211,15 @@ def test_frame_graph_key_and_cpu_route(monkeypatch):
     assert fg._key(rp, "auto") != key
 
 
-def test_render_batch_keeps_its_captures_across_calls(monkeypatch):
-    """render_batch's one FrameGraph for the process, with the card's
-    capture and replay stubbed (a replay writes the frame's transform
-    into the graph's outputs): a second call with the same pass replays
-    every frame; a pass with other data pointers gets its own capture;
-    the cache holds at most MAX_CAPTURES and drops the least recently
-    used first, each drop counted in ``evictions``."""
+def _stub_capture(monkeypatch, capturable=lambda rp, backend: True):
+    """The card's capture and replay stubbed on the CPU: a frame is its
+    transform's entries (0, 3) in colour and (1, 3) in depth, and a
+    replay writes the frame of the graph's static transform into its
+    outputs. Returns the stub's frame function and a 3-triangle mesh."""
     import types
     from software_renderer_tpu_torch.framebuffer import Framebuffer
     from software_renderer_tpu_torch.models.mesh import mesh_from_numpy
-    from software_renderer_tpu_torch.parallel import batch
     from software_renderer_tpu_torch.parallel import frame_graph as fg
-    from software_renderer_tpu_torch.render import RenderPass
 
     def frame(t):
         return Framebuffer(color=t[0, 3].expand(2, 3, 4).clone(),
@@ -239,11 +235,25 @@ def test_render_batch_keeps_its_captures_across_calls(monkeypatch):
         return fg._Capture(types.SimpleNamespace(replay=replay), static_t,
                            out, {}, rp, (), "sr.frame_graph.replay")
 
-    monkeypatch.setattr(fg, "capturable", lambda rp, backend: True)
+    monkeypatch.setattr(fg, "capturable", capturable)
     monkeypatch.setattr(fg, "render", lambda rp, backend: frame(rp.transform))
     monkeypatch.setattr(fg.FrameGraph, "_capture", capture)
+    return frame, mesh_from_numpy(np.eye(3), [0, 1, 2], device="cpu")
+
+
+def test_render_batch_keeps_its_captures_across_calls(monkeypatch):
+    """render_batch's one FrameGraph for the process, with the card's
+    capture and replay stubbed (a replay writes the frame's transform
+    into the graph's outputs): a second call with the same pass replays
+    every frame; a pass with other data pointers gets its own capture;
+    the cache holds at most MAX_CAPTURES and drops the least recently
+    used first, each drop counted in ``evictions``."""
+    from software_renderer_tpu_torch.parallel import batch
+    from software_renderer_tpu_torch.parallel import frame_graph as fg
+    from software_renderer_tpu_torch.render import RenderPass
+
+    _, mesh = _stub_capture(monkeypatch)
     monkeypatch.setattr(batch, "_graph", fg.FrameGraph())
-    mesh = mesh_from_numpy(np.eye(3), [0, 1, 2], device="cpu")
     passes = [RenderPass(mesh=dataclasses.replace(
         mesh, positions=mesh.positions.clone()), transform=torch.eye(4),
         width=3, height=2) for _ in range(fg.MAX_CAPTURES + 2)]
@@ -277,6 +287,53 @@ def test_render_batch_keeps_its_captures_across_calls(monkeypatch):
     kept = [c.rp.mesh for c in batch._graph._captures.values()]
     want = [*range(4, fg.MAX_CAPTURES + 1), 0, 1, fg.MAX_CAPTURES + 1]
     assert all(m is passes[i].mesh for m, i in zip(kept, want, strict=True))
+
+
+def test_frame_graph_repeats_a_pass_given_its_transform_apart(monkeypatch):
+    """A FrameGraph called with the same pass object and its transform
+    apart, as FrameLoop calls it, builds the capture's key once and then
+    replays the last call's capture under each call's transform; a new
+    sampler route, a pass tensor that comes to require grad, another
+    pass object, backend or transform dtype, and a call without a
+    transform apart each make the next call build the key again (the
+    card's capture and replay stubbed)."""
+    from software_renderer_tpu_torch.parallel import frame_graph as fg
+    from software_renderer_tpu_torch.render import RenderPass
+
+    _, mesh = _stub_capture(monkeypatch, lambda rp, backend: not any(
+        t.requires_grad for t in fg._tensors(rp)))
+    keys, key = [], fg._key
+    monkeypatch.setattr(fg, "_key", lambda rp, b: keys.append(b) or key(rp, b))
+    graph = fg.FrameGraph()
+    rp = RenderPass(mesh=mesh, transform=torch.eye(4), width=3, height=2)
+    ts = torch.eye(4).repeat(4, 1, 1)
+    ts[:, 0, 3] = torch.tensor([1.0, 2.0, 3.0, 4.0])
+
+    def frames(p, want_keys, backend="auto", dtype=torch.float32):
+        keys.clear()
+        for t in ts:
+            fb = graph(p, backend, transform=t.to(dtype))
+            assert float(fb.color[0, 0, 0]) == float(t[0, 3])
+        assert len(keys) == want_keys, keys
+
+    fg.reset_routes()
+    frames(rp, 1)
+    assert fg.routes == {"capture": 1, "replay": 3, "eager": 0}
+    frames(rp, 0)
+    monkeypatch.setattr(ttex, "TEX_WINDOWED", "1")
+    frames(rp, 1)                      # a new key: captured again
+    mesh.positions.requires_grad_(True)
+    fg.reset_routes()
+    frames(rp, 0)                      # no graph holds it
+    assert fg.routes == {"capture": 0, "replay": 0, "eager": 4}
+    mesh.positions.requires_grad_(False)
+    frames(rp, 1)
+    frames(dataclasses.replace(rp), 1)
+    frames(rp, 1, backend="binned")
+    frames(rp, 1, dtype=torch.float64)
+    graph(rp)
+    frames(rp, 1)
+    assert fg.routes["eager"] == 4
 
 
 def test_texture_train_step_over_a_mesh_equals_meshless():
