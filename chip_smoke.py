@@ -30,8 +30,9 @@ printing a result:
    backend (K3'), flat shading (K5), binned_pipeline with attributes
    (K6), SR_TEX_WINDOWED route "1" (K7), the gather probe (K8),
    config4_camera at t = 0 with perspective-correct attributes alone
-   (K1's flag) and with the clip (K2's perspective plan, static and
-   seeded), and config 4 at 3840x2160 untextured (the 4K tail).
+   (K1's flag) and with the clip (the clip front-end kernel, K2's
+   perspective plan, static and seeded), and config 4 at 3840x2160
+   untextured (the 4K tail).
 
 Phase 3 runs K2, K3 and K4 as the main path calls them: K2 seeded with
 the frame's overflow count, which must equal the static walk bit for
@@ -39,7 +40,9 @@ bit and read no seed at a count of 0 (timed against the static launch
 in turns), K3 and K4 over the static overflow list with the device
 count (K3 equal to its run over the compact list, and both returning
 their seeds at a count of 0). It also holds K1 with its perspective
-flag and K2's perspective plan (static, and seeded from K3 and K4 at 9
+flag, the clip front-end kernel (csrc/clip_front.cu, every field and
+the table bit for bit, its bound the bytes alone) and K2's perspective
+plan (static, and seeded from K3 and K4 at 9
 channels on the camera frame's own spills) against their plain versions
 at the camera path's t = 0 shapes, with their times and bounds. It
 holds K3' on large triangles (config 2's cube at 1920x1080) against its
@@ -83,6 +86,7 @@ import torch
 from software_renderer_tpu_torch import _cuda, render
 from software_renderer_tpu_torch.models import scenes
 from software_renderer_tpu_torch.ops import binning as tb
+from software_renderer_tpu_torch.ops import clip as tclip
 from software_renderer_tpu_torch.ops import frontend as fe
 from software_renderer_tpu_torch.ops import texture as ttex
 from software_renderer_tpu_torch.ops import texture_kernel as ttk
@@ -94,7 +98,10 @@ from software_renderer_tpu_torch.ops.rasterize_kernel import (
     visibility_merge_plain, visibility_plain)
 from software_renderer_tpu_torch.ops import shading as tsh
 from software_renderer_tpu_torch.ops.shading import fused_output_channels
-from software_renderer_tpu_torch.render import (clip_inputs,
+from software_renderer_tpu_torch.ops.clip import (clip_front_table,
+                                                 clip_front_table_plain)
+from software_renderer_tpu_torch.render import (clip_front_inputs,
+                                               clip_inputs,
                                                planar_front_table_of,
                                                triangle_inputs)
 from software_renderer_tpu_torch.tools import probe_dyngather as probe
@@ -942,6 +949,35 @@ def phase_camera_kernels(dev):
         **bound(nbytes(cols, m16, vals, rk, tk),
                 (OPS_FE + OPS_FE_CHANNEL * a1 + 3 + 3 * len(attrs)) * t))
 
+    # The clip front-end kernel alone against its plain version, the
+    # torch chain, on the same frame: every field and the table bit for
+    # bit. Its least time is the bytes it must move: the mesh's indices
+    # and vertex arrays read once, the [2T] rows, bbox, flags and table
+    # written once.
+    args, ckw = clip_front_inputs(rp)
+    got = clip_front_table(*args, **ckw)
+    want = clip_front_table_plain(*args, **ckw)
+    sync()
+    for f in dataclasses.fields(fe.PlanarSetup):
+        assert_bit_equal(getattr(got[0], f.name), getattr(want[0], f.name),
+                         f"clip front-end {f.name}")
+    assert_bit_equal(got[1][0], want[1][0], "clip front-end stream table")
+    cps, (ctab, _, _) = got
+    out_bytes = (nbytes(ctab) + 4 * len(tclip.CLIP_ROWS) * cps.num_triangles
+                 + nbytes(cps.bx0, cps.by0, cps.bx1, cps.by1, cps.valid,
+                          cps.safe))
+    in_bytes = nbytes(args[0], args[1], *(v for v, _ in args[2]))
+    res["clip_front"] = dict(
+        max_abs_err=0.0,
+        ms=graph_ms(lambda: clip_front_table(*args, **ckw), 50),
+        launch_loop_ms=cuda_ms(lambda: clip_front_table(*args, **ckw), 50),
+        plain_ms=cuda_ms(lambda: clip_front_table_plain(*args, **ckw), 10),
+        shape=f"T={t} -> {cps.num_triangles} slots, A={len(attrs)} + 1/w, "
+              f"{int(cps.valid.sum())} valid; {in_bytes} bytes in, "
+              f"{out_bytes} out",
+        **bound(in_bytes + out_bytes, 0))
+    del got, want, cps, ctab
+
     setup, pv, chans, prm, _, _ = clip_inputs(rp)
     ps = fe.from_setup(setup)
     table, a, poison = fe.stream_table_planar(
@@ -1033,10 +1069,12 @@ def phase_camera_kernels(dev):
                 OPS_TEST * binned_px + w * h * pix_ops))
     print(f"camera kernels (config4_camera t=0, {w}x{h}, {ps.num_triangles} "
           f"slots, {int(ps.valid.sum())} valid; {live_pairs(info)} pairs, "
-          f"{n_ov} spilled): K1 with the flag, K2's perspective plan "
+          f"{n_ov} spilled): K1 with the flag, the clip front-end, K2's "
+          f"perspective plan "
           f"static and seeded, K4 at {a} channels equal their plain "
           f"versions", flush=True)
-    for name in ("fe_persp", "fused_persp", "fused_persp_seeded"):
+    for name in ("fe_persp", "clip_front", "fused_persp",
+                 "fused_persp_seeded"):
         print(f"  {name}: {json.dumps(res[name])}", flush=True)
     _cuda.reset_launches()
     return res
@@ -1158,6 +1196,9 @@ def main():
         "fused_persp_seeded": ("fused_kernel(perspective=True, seeds=...)",
                                "fused.cu", jax + "binning.py:703",
                                "clip + perspective", "fused_persp_seeded"),
+        "clip_front": ("clip_front_table", "clip_front.cu",
+                       "software_renderer_tpu/render.py:213 (XLA)",
+                       "clip + perspective", "clip_front"),
         "tail": ("tail_kernel", "tail.cu", jax + "shading.py:301 (XLA)",
                  "main", "tail"),
         "tail_uhd": ("tail_kernel (4K, untextured)", "tail.cu",

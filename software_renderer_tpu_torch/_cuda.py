@@ -43,7 +43,7 @@ launches = {"fe": 0, "fe_persp": 0, "fused": 0, "fused_seeded": 0,
             "fused_persp": 0, "fused_persp_seeded": 0, "visibility_merge": 0,
             "resolve_merge": 0, "visibility": 0, "binned_vis": 0,
             "resolve": 0, "sampler": 0, "window_lookup": 0,
-            "take_along_axis": 0, "tail": 0}
+            "take_along_axis": 0, "tail": 0, "clip_front": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -64,6 +64,8 @@ _SIGNATURES = {
     "sr_take_along_axis": (_P, _I, _I, _P, _I, _P, _P),
     "sr_capture_nodes": (_P, _I, _P),
     "sr_tail": (_P, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _I, _P),
+    "sr_clip_front": (_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _P, _I,
+                      _P, _I, _I, _I, _F, _P, _P, _P, _P, _P),
 }
 
 _lib = None

@@ -30,54 +30,9 @@
 //   corner's 1 / w, with the w this thread has just computed, and a last
 //   channel 1/w joins the table. Computing w again in torch before the
 //   kernel would repeat the transform.
-#include "common.cuh"
+#include "setup.cuh"
 
 namespace {
-
-__device__ __forceinline__ float round_half_away(float x) {
-  return sr::tsign(x) * floorf(fabsf(x) + 0.5f);
-}
-
-__device__ __forceinline__ float clean(float a) {
-  return isfinite(a) ? a : 0.0f;
-}
-
-__device__ __forceinline__ float clip(float a, float lo, float hi) {
-  return sr::tmin(sr::tmax(a, lo), hi);
-}
-
-// ops/setup.py coverage_safe, expression for expression.
-__device__ bool coverage_safe(float x1, float y1, float x2, float y2,
-                              float x3, float y3, float a0, float b0,
-                              float a1, float b1, float abs_d, float wf,
-                              float hf) {
-  const float tiny = 1e-30f;
-  const float scale = 0x1p-20f;    // ERR_SCALE
-  const float margin = 0.25f;      // SAFE_MARGIN
-  float ax = sr::tmax(fabsf(x3), wf) + 1.0f;
-  float ay = sr::tmax(fabsf(y3), hf) + 1.0f;
-  float m0 = fabsf(a0) * ax + fabsf(b0) * ay;
-  float m1 = fabsf(a1) * ax + fabsf(b1) * ay;
-  float md = fabsf(x1 - x3) * fabsf(y2 - y3) + fabsf(x2 - x3) * fabsf(y1 - y3);
-  bool exact = (m0 + m1 + md) < 0x1p21f;  // EXACT_LIMIT
-  float err0 = exact ? 0.0f : m0 * scale;
-  float err1 = exact ? 0.0f : m1 * scale;
-  float err2 = err0 + err1 + (exact ? 0.0f : md * scale);
-  float a2 = a0 + a1;
-  float b2 = b0 + b1;
-  float g0u = fabsf(a0) + fabsf(b0);
-  float g1u = fabsf(a1) + fabsf(b1);
-  float g2u = fabsf(a2) + fabsf(b2);
-  float g0l = sr::tmax(sr::tmax(fabsf(a0), fabsf(b0)), tiny);
-  float g1l = sr::tmax(sr::tmax(fabsf(a1), fabsf(b1)), tiny);
-  float g2l = sr::tmax(sr::tmax(fabsf(a2), fabsf(b2)), tiny);
-  float e_shift = sr::tmax(sr::tmax(err0 / g0l, err1 / g1l), err2 / g2l);
-  float dd = sr::tmax(abs_d, tiny);
-  float v_shift = sr::tmax(sr::tmax(err0 * g1u + err1 * g0u,
-                                    err0 * g2u + err2 * g0u),
-                           err1 * g2u + err2 * g1u) / dd;
-  return (e_shift <= margin) && (v_shift <= margin);
-}
 
 constexpr int kThreads = 128;
 constexpr int kMaxChannels = 9;
@@ -113,78 +68,26 @@ fe_kernel(const float* __restrict__ cols, int t, const float* __restrict__ m,
     float X = live ? cols[(3 * c) * (size_t)t + i] : 0.0f;
     float Y = live ? cols[(3 * c + 1) * (size_t)t + i] : 0.0f;
     float Z = live ? cols[(3 * c + 2) * (size_t)t + i] : 0.0f;
-    float cx = mm[0] * X + mm[1] * Y + mm[2] * Z + mm[3];
-    float cy = mm[4] * X + mm[5] * Y + mm[6] * Z + mm[7];
-    float cz = mm[8] * X + mm[9] * Y + mm[10] * Z + mm[11];
-    float cw = mm[12] * X + mm[13] * Y + mm[14] * Z + mm[15];
-    near_ok = near_ok && (cw > near_eps);
-    float wg = (cw == 0.0f) ? 1.0f : cw;
-    float u = (cx / wg) * 0.5f + 0.5f;
-    float v = (cy / wg) * -0.5f + 0.5f;
-    xs[c] = round_half_away(u * wf);
-    ys[c] = round_half_away(v * hf);
-    zs[c] = cz / wg;
-    ws[c] = cw;
+    float cc[4];
+    sr::clip_coords(mm, X, Y, Z, cc);
+    near_ok = near_ok && (cc[3] > near_eps);
+    sr::to_screen(cc[0], cc[1], cc[2], cc[3], wf, hf, &xs[c], &ys[c],
+                  &zs[c]);
+    ws[c] = cc[3];
   }
-  const float x1 = xs[0], x2 = xs[1], x3 = xs[2];
-  const float y1 = ys[0], y2 = ys[1], y3 = ys[2];
-  const float z1 = zs[0], z2 = zs[1], z3 = zs[2];
-
-  float d = (x1 - x3) * (y2 - y3) - (x2 - x3) * (y1 - y3);
-  bool finite = isfinite(x1) && isfinite(y1) && isfinite(z1) &&
-                isfinite(x2) && isfinite(y2) && isfinite(z2) &&
-                isfinite(x3) && isfinite(y3) && isfinite(z3);
-  bool degenerate = !finite || (d == 0.0f);
-  float s = (d < 0.0f) ? -1.0f : 1.0f;
-  float abs_d = fabsf(d);
-  float inv_area = degenerate ? 0.0f : 1.0f / abs_d;
-  float a0 = (y2 - y3) * s;
-  float b0 = (x3 - x2) * s;
-  float a1 = (y3 - y1) * s;
-  float b1 = (x1 - x3) * s;
-  float c0 = -(a0 * x3 + b0 * y3);
-  float c1 = -(a1 * x3 + b1 * y3);
-  float a2 = -(a0 + a1);
-  float b2 = -(b0 + b1);
-  float c2 = abs_d - c0 - c1;
-  float zx = (a0 * z1 + a1 * z2 + a2 * z3) * inv_area;
-  float zy = (b0 * z1 + b1 * z2 + b2 * z3) * inv_area;
-  float zc = (c0 * z1 + c1 * z2 + c2 * z3) * inv_area;
-
-  float min_x = sr::tmin(sr::tmin(x1, x2), x3);
-  float max_x = sr::tmax(sr::tmax(x1, x2), x3);
-  float min_y = sr::tmin(sr::tmin(y1, y2), y3);
-  float max_y = sr::tmax(sr::tmax(y1, y2), y3);
-  bool offscreen = (max_x < 0.0f) || (min_x > wf) || (max_y < 0.0f) ||
-                   (min_y > hf);
-  float bx0 = clip(clean(floorf(min_x)), 0.0f, (float)(width - 1));
-  float by0 = clip(clean(floorf(min_y)), 0.0f, (float)(height - 1));
-  float bx1 = clip(clean(ceilf(max_x)), 0.0f, (float)(width - 1));
-  float by1 = clip(clean(ceilf(max_y)), 0.0f, (float)(height - 1));
-
-  bool valid = !degenerate && !offscreen && near_ok;
-  if (cull) valid = valid && (ccw ? (d > 0.0f) : (d < 0.0f));
-
-  a0 = valid ? a0 : 0.0f;
-  a1 = valid ? a1 : 0.0f;
-  a2 = valid ? a2 : 0.0f;
-  b0 = valid ? b0 : 0.0f;
-  b1 = valid ? b1 : 0.0f;
-  b2 = valid ? b2 : 0.0f;
-  c0 = valid ? c0 : -1.0f;
-  c1 = valid ? c1 : -1.0f;
-  c2 = valid ? c2 : -1.0f;
-  zx = valid ? zx : 0.0f;
-  zy = valid ? zy : 0.0f;
-  zc = valid ? zc : INFINITY;
-  inv_area = valid ? inv_area : 0.0f;
-  bool safe = coverage_safe(x1, y1, x2, y2, x3, y3, a0, b0, a1, b1, abs_d,
-                            wf, hf) || !valid;
+  const sr::Setup su = sr::setup_columns(xs, ys, zs, width, height, near_ok,
+                                         cull, ccw);
+  const float a0 = su.a0, a1 = su.a1, a2 = su.a2;
+  const float b0 = su.b0, b1 = su.b1, b2 = su.b2;
+  const float c0 = su.c0, c1 = su.c1, c2 = su.c2;
+  const float zx = su.zx, zy = su.zy, zc = su.zc;
+  const float abs_d = su.abs_d, inv_area = su.inv_area;
+  const bool valid = su.valid, safe = su.safe;
 
   const float row[24] = {a0, a1, a2, b0, b1, b2, c0, c1, c2, zx, zy, zc,
-                         valid ? abs_d : 0.0f, inv_area, d, bx0, by0, bx1,
-                         by1, valid ? 1.0f : 0.0f, ws[0], ws[1], ws[2],
-                         safe ? 1.0f : 0.0f};
+                         valid ? abs_d : 0.0f, inv_area, su.d, su.bx0,
+                         su.by0, su.bx1, su.by1, valid ? 1.0f : 0.0f, ws[0],
+                         ws[1], ws[2], safe ? 1.0f : 0.0f};
   if (live) {
 #pragma unroll
     for (int r = 0; r < 24; ++r) out[r * (size_t)t + i] = row[r];

@@ -5,13 +5,14 @@ vertices; no backend applies to them).
 
 Every frame starts with a front-end: the planar one (ops/frontend.py,
 CUDA kernel on the card), or with ``clip_near=True`` the clip front-end
-(torch ops, as JAX's is XLA): ops/clip.py's transform and near-plane
-clip to [2T] triangles, the divide, ``ndc_to_screen`` and
-``triangle_setup_from_corners``, whose TriangleSetup every backend takes
-(the binned path through ``frontend.from_setup``). Then, by backend:
+(ops/clip.py): the transform and near-plane clip to [2T] triangles, the
+divide, ``ndc_to_screen`` and ``triangle_setup_from_corners``. Then, by
+backend:
 
 * ``auto`` / ``binned`` (the main path): the front-end writes the stream
-  table with the setup (``planar_front_table``), then the banded bin build
+  table with the setup (``planar_front_table``; with the clip
+  ``clip_front_table``, one launch of csrc/clip_front.cu on the card and
+  its torch chain on the CPU), then the banded bin build
   (ops/binning.py), the fused raster + shade kernel (with the overflow
   merge kernels on spill frames), then the texture tail, sample and
   combine (ops/shading.py ``texture_tail``): on the card one launch of
@@ -27,10 +28,13 @@ clip to [2T] triangles, the divide, ``ndc_to_screen`` and
 * ``reference``: the brute-force visibility pass in plain torch
   (ops/rasterize_ref.py), then ``shade``.
 
+With the clip, ``pallas`` and ``reference`` take ``clip_front``'s
+TriangleSetup, in torch operations on the card too.
+
 ``perspective_correct=True`` interpolates attributes perspective-correct:
 on ``auto``/``binned`` the stream table carries each channel over w and
-a 1/w channel (the front-end kernel's flag on the planar path,
-``perspective_vertex_attrs`` on the clipped one) and the fused kernel
+a 1/w channel (the front-end kernels' flag; ``perspective_vertex_attrs``
+in the clip's plain version) and the fused kernel
 runs its perspective plan; ``reference``/``pallas`` pass the corners'
 w to ``shade``.
 
@@ -62,16 +66,16 @@ from .models.mesh import Mesh
 from .ops import frontend as fe
 from .ops import lines as lines_ops
 from .ops.binning import binned_pipeline, fused_pipeline, stream_table_of
-from .ops.clip import clip_near, compose_attrs, transform_corners_clip
+from .ops.clip import (clip_front, clip_front_table, clipped_channels,
+                       compose_attrs)
 from .ops.rasterize_kernel import visibility_pallas
 from .ops.rasterize_ref import visibility_ref
-from .ops.setup import triangle_setup_from_corners
 from .ops.shading import (Light, attribute_channels, fused_output_channels,
-                          gather_attribute_values, perspective_vertex_attrs,
-                          shade, shade_gbuffer, shading_params, texture_tail)
+                          gather_attribute_values, shade, shade_gbuffer,
+                          shading_params, texture_tail)
 from .ops.texture import Texture
 from .ops.transforms import inverse_transpose_3x3
-from .ops.vertex import ndc_to_screen, vertex_stage
+from .ops.vertex import vertex_stage
 from .utils.profiling import span
 
 
@@ -116,28 +120,6 @@ def planar_front_of(rp: RenderPass) -> fe.PlanarSetup:
                            cull_backfaces=rp.cull_backfaces)
 
 
-def clip_front(corners, transform, width: int, height: int, *,
-               cull_backfaces: bool = False):
-    """The near-plane clip front-end: [T, 3, 3] model-space corners ->
-    (TriangleSetup of the [2T] clipped triangles, bary [2T, 3, 3] of
-    their corners over the source corners, w [2T, 3] clip-space w).
-
-    A triangle wholly in front (case 0) keeps its corners and gets the
-    planar front-end's setup bit for bit: the same multiply-add chains,
-    divide and rounding, and the same setup math (ops/setup.py
-    ``setup_columns``)."""
-    clip, bary, cvalid = clip_near(transform_corners_clip(corners, transform))
-    w = clip[:, :, 3]
-    ndc = clip[:, :, :3] / torch.where(w == 0.0, 1.0, w)[:, :, None]
-    t2 = ndc.shape[0]
-    screen = ndc_to_screen(ndc.reshape(t2 * 3, 3), width, height).reshape(
-        t2, 3, 3)
-    setup = triangle_setup_from_corners(
-        screen, width, height, cull_backfaces=cull_backfaces,
-        extra_valid=cvalid)
-    return setup, bary, w
-
-
 def triangle_inputs(rp: RenderPass, ps: Optional[fe.PlanarSetup] = None):
     """What the fused pipeline takes for a triangle RenderPass: the planar
     front-end (computed unless given), the channel plan, the per-corner
@@ -153,7 +135,7 @@ def shading_inputs(rp: RenderPass, with_attrs: bool = True, tris=None):
     columns of the triangles ``tris`` ([T', 3] vertex indices, by default
     the mesh's), or None without ``with_attrs``."""
     mesh = rp.mesh
-    if tris is None:
+    if tris is None and with_attrs:
         tris = mesh.triangles().long()
     has_light = rp.light is not None and mesh.normals is not None
     has_texture = rp.shading == "textured"
@@ -276,20 +258,25 @@ def _stop_geometry_grads(fn, *inputs):
     return _StopGeometryGrads.apply(fn, *inputs)
 
 
-def clipped_channels(corners, transform, vals, width: int, height: int, *,
-                     cull_backfaces: bool, perspective: bool):
-    """:func:`clip_front` and the channel values of its triangles: (setup,
-    [2T, 3, A] values through the clip, each over its corner's w and a
-    last 1/w channel with ``perspective``; None where ``vals``, the
-    [T, 3, A] source values, is None)."""
-    setup, bary, w_c = clip_front(corners, transform, width, height,
-                                  cull_backfaces=cull_backfaces)
-    if vals is None:
-        return setup, None
-    vals = compose_attrs(bary, vals)
-    if perspective:
-        vals = perspective_vertex_attrs(vals, w_c)
-    return setup, vals
+def clip_front_inputs(rp: RenderPass, chans=None):
+    """The arguments of ops/clip.py ``clip_front_table`` (and its plain
+    version) for a ``clip_near`` RenderPass on the main path, as (args,
+    kwargs): the mesh's positions and indices, its vertex arrays in the
+    order of the channel plan ``chans`` (the pass's by default), the
+    normals marked for the model's normal matrix, the transform and the
+    frame's size."""
+    mesh = rp.mesh
+    if chans is None:
+        chans = attribute_channels(rp.shading, mesh.colors is not None,
+                                   rp.light is not None
+                                   and mesh.normals is not None)
+    arrays = {"rgb": mesh.colors, "normal": mesh.normals, "uv": mesh.uvs}
+    sources = [(arrays[name], name == "normal") for name, _ in chans]
+    nm = _normal_matrix(rp) if any(rot for _, rot in sources) else None
+    return ((mesh.positions, mesh.indices, sources, nm, rp.transform,
+             rp.width, rp.height),
+            dict(cull_backfaces=rp.cull_backfaces,
+                 perspective=rp.perspective_correct and bool(chans)))
 
 
 def _corner_values(attrs):
@@ -401,9 +388,11 @@ def render_triangles(rp: RenderPass, backend: str = "auto",
     # and raster, then the texture tail.
     front_span = "sr.clip_front" if rp.clip_near else "sr.front"
     with span(front_span):
-        tris = mesh.triangles().long()
+        tris = None if rp.clip_near else mesh.triangles().long()
+        # The clip front-end gathers its corners and attribute values
+        # itself.
         chans, attrs, params, has_light, has_texture = shading_inputs(
-            rp, with_attrs=table is None)
+            rp, with_attrs=table is None and not rp.clip_near)
         # The JAX package's budgets for the banded layout: culled scenes
         # emit about half the pairs, and bands emit ~1.3-1.5x more pairs
         # than whole tiles.
@@ -416,21 +405,25 @@ def render_triangles(rp: RenderPass, backend: str = "auto",
         n_attr = sum(size for _, size in chans)
 
         if rp.clip_near:
-            def geometry(corners, transform, *xs):
-                # xs: the [T, 3, A] attribute values (normals rotated),
-                # the shading row.
+            args, ckw = clip_front_inputs(rp, chans)
+            sources, nm = args[2], args[3]
+
+            def geometry(positions, transform, *xs):
+                # xs: the vertex attribute arrays in channel order, the
+                # normal matrix (with a normal channel and a model), the
+                # shading row. One launch on the card.
                 with span("sr.clip_front"):
-                    setup, vals = clipped_channels(
-                        corners, transform, xs[0] if chans else None,
-                        rp.width, rp.height,
-                        cull_backfaces=rp.cull_backfaces, perspective=persp)
-                    ps = fe.as_planar(setup)
-                    tbl = stream_table_of(ps, vals)
+                    ps, tbl = clip_front_table(
+                        positions, mesh.indices,
+                        [(x, rot) for x, (_, rot) in zip(xs, sources)],
+                        xs[len(sources)] if nm is not None else None,
+                        transform, *args[5:], **ckw)
                 return pipeline(ps, tbl, xs[-1] if chans else None)
 
-            inputs = [mesh.positions[tris], rp.transform]
-            if chans:
-                inputs.append(_corner_values(attrs))
+            inputs = [mesh.positions, rp.transform]
+            inputs += [values for values, _ in sources]
+            if nm is not None:
+                inputs.append(nm)
         elif front is not None:
             names = [f.name for f in dataclasses.fields(fe.PlanarSetup)]
 

@@ -23,6 +23,7 @@ import torch
 
 import software_renderer_tpu as sr
 from software_renderer_tpu.models import scenes as jscenes
+from software_renderer_tpu.ops import binning as jbin
 from software_renderer_tpu.ops import clip as jclip
 from software_renderer_tpu.ops import frontend as jfe
 from software_renderer_tpu.ops import resolve as jres
@@ -449,6 +450,73 @@ def test_clipped_ids_match_jax():
            + np.abs(zp[:, 2]))
     err = np.abs(np.asarray(dj)[cov].astype(np.float64) - dt.numpy()[cov])
     assert (err <= 2.0 ** -21 * mag).all()
+
+
+def test_clip_front_table_plain_matches_jax():
+    """The main path's clip front-end in torch operations (ops/clip.py
+    ``clip_front_table_plain``, the plain version of the clip front-end
+    kernel) against the JAX package's XLA clip path, op by op: corner and
+    attribute gathers (JAX bakes the normal matrix into the vertices'
+    normals, the port rotates the gathered ones), clip, setup, the
+    channels through the clip over w with 1/w, and JAX's
+    ``build_stream_table``. 64 textured, lit triangles around the eye at
+    160x90, some vertices shared: every setup column and the table bit
+    for bit but the normals' planes, and cut triangles fill second
+    slots."""
+    rng = np.random.default_rng(23)
+    t = 64
+    corners = (rng.uniform(-1.5, 1.5, (t, 1, 3))
+               + rng.uniform(-0.6, 0.6, (t, 3, 3))).astype(np.float32)
+    corners[..., 2] += 2.0       # around the eye at z = 0.6
+    positions = corners.reshape(3 * t, 3)
+    idx = np.arange(3 * t, dtype=np.int32)
+    idx[5::9] = idx[1::9][:idx[5::9].size]        # shared vertices
+    colors = rng.uniform(0.0, 1.0, (3 * t, 3)).astype(np.float32)
+    normals = rng.normal(size=(3 * t, 3)).astype(np.float32)
+    uvs = rng.uniform(0.0, 1.0, (3 * t, 2)).astype(np.float32)
+    nm = np.asarray(jtf.inverse_transpose_3x3(jtf.rotation_matrix(
+        jtf.quat_from_axis_angle(jnp.array([0.3, 1.0, 0.2]) / 1.06,
+                                 0.7))[:3, :3]))
+    m = np.asarray(camera_transform(jnp.eye(4)))
+    ps, (table, n, _) = tclip.clip_front_table_plain(
+        T(positions), T(idx), [(T(colors), False), (T(normals), True),
+                               (T(uvs), False)], T(nm), T(m), 160, 90,
+        perspective=True)
+
+    tris = jnp.asarray(idx.reshape(t, 3))
+    clip, bary, cvalid = jclip.clip_near(jclip.transform_corners_clip(
+        jnp.asarray(positions)[tris], jnp.asarray(m)))
+    w = clip[:, :, 3]
+    ndc = clip[:, :, :3] / jnp.where(w == 0.0, 1.0, w)[:, :, None]
+    screen = jvx.ndc_to_screen(ndc.reshape(-1, 3), 160, 90).reshape(-1, 3, 3)
+    sj = jsetup.triangle_setup_from_corners(screen, 160, 90,
+                                            extra_valid=cvalid)
+    attrs, chans = jsh.gather_attribute_values(
+        "textured", tris, colors=jnp.asarray(colors),
+        normals=jnp.asarray(normals) @ jnp.asarray(nm).T,
+        uvs=jnp.asarray(uvs))
+    attrs = jsh.perspective_vertex_attrs(jclip.compose_attrs(bary, attrs), w)
+    tj, nj, _ = jbin.build_stream_table(sj, attrs)
+
+    coef = torch.stack([torch.stack([getattr(ps, r + str(k)) for k in range(3)],
+                                    dim=-1) for r in "abc"], dim=-2)
+    _eq(sj.coef, coef.numpy())
+    _eq(sj.zplane, torch.stack([ps.zx, ps.zy, ps.zc], dim=-1).numpy())
+    _eq(sj.bbox, torch.stack([ps.bx0, ps.by0, ps.bx1, ps.by1], dim=-1).numpy())
+    for f in ("valid", "safe", "inv_area", "area2"):
+        _eq(getattr(sj, f), getattr(ps, f).numpy())
+    assert n == nj == 9 and chans == [("rgb", 3), ("normal", 3), ("uv", 2)]
+    # The normal channels' planes (columns 20-28) within 2^-16 of each
+    # entry: JAX's product with the normal matrix rounds some normals an
+    # ulp apart from the port's multiply-add chain (render.py
+    # shading_inputs), and the planes' differences of products amplify it.
+    tj, tt = np.asarray(tj), table.numpy()
+    normal = np.zeros(tj.shape[1], bool)
+    normal[20:29] = True
+    _eq(tj[:, ~normal], tt[:, ~normal])
+    np.testing.assert_allclose(tt[:, normal], tj[:, normal], rtol=2 ** -16,
+                               atol=0)
+    assert bool(ps.valid[t:].any()) and int(ps.valid.sum()) > 20
 
 
 def test_fused_perspective_uv_matches_oracle_math():

@@ -27,6 +27,7 @@ from software_renderer_tpu_torch import _cuda, render
 from software_renderer_tpu_torch.models import scenes
 from software_renderer_tpu_torch.models.mesh import mesh_from_numpy
 from software_renderer_tpu_torch.ops import binning as tb
+from software_renderer_tpu_torch.ops import clip as tclip
 from software_renderer_tpu_torch.ops import frontend as fe
 from software_renderer_tpu_torch.ops import shading as tsh
 from software_renderer_tpu_torch.ops import texture as ttex
@@ -41,6 +42,7 @@ from software_renderer_tpu_torch.ops.shading import Light, shading_params
 from software_renderer_tpu_torch.parallel.batch import render_batch
 from software_renderer_tpu_torch.parallel.sharding import texture_train_step
 from software_renderer_tpu_torch.render import (RenderPass, clip_front,
+                                               clip_front_inputs,
                                                clip_inputs,
                                                planar_front_table_of,
                                                shading_inputs,
@@ -1024,8 +1026,10 @@ def _camera_scene(name):
     ("config4_camera_flat", "auto", ("binned_vis",))])
 def test_camera_render_on_card_matches_cpu(name, backend, kernels):
     """The camera scenes on the card against the CPU's plain versions:
-    alpha and depth bit for bit, color within 1e-3; the clip front-end
-    runs as torch ops on both, so the setups are the same."""
+    alpha and depth bit for bit, color within 1e-3; with the clip on
+    ``auto`` the clip front-end kernel runs once on the card, its torch
+    chain on the CPU, and pallas and reference take the torch clip on
+    both, so the setups are the same."""
     rp = _camera_scene(name)
     if name.endswith("flat"):
         rp = dataclasses.replace(rp, shading="flat")
@@ -1037,6 +1041,8 @@ def test_camera_render_on_card_matches_cpu(name, backend, kernels):
         assert _cuda.launches[k] >= 1, (k, dict(_cuda.launches))
     if rp.clip_near:
         assert _cuda.launches["fe"] == 0, dict(_cuda.launches)
+    assert _cuda.launches["clip_front"] == int(
+        rp.clip_near and backend == "auto"), dict(_cuda.launches)
     cg, dg = fb_g.color.cpu(), fb_g.depth.cpu()
     assert bool(fb_c.color[..., 3].any())
     assert bool(torch.isfinite(cg).all())
@@ -1086,6 +1092,224 @@ def test_clip_is_a_no_op_in_front_on_card():
         assert bool(plain.color[..., 3].any())
         assert _equal(clipped.color, plain.color), persp
         assert _equal(clipped.depth, plain.depth), persp
+
+
+def _bits_equal(a, b):
+    """Bit for bit (NaN matching NaN); dtypes and shapes equal too."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return bool((a == b).all())
+    return bool(((a.view(torch.int32) == b.view(torch.int32))
+                 | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _assert_clip_front_equal(got, want):
+    """The clip front-end kernel's (PlanarSetup, (table, n, poison))
+    against its plain version's: every field and the table bit for bit."""
+    (ps, (table, n, poison)), (pp, (tp, n_p, poison_p)) = got, want
+    bad = [f.name for f in dataclasses.fields(fe.PlanarSetup)
+           if not _bits_equal(getattr(ps, f.name), getattr(pp, f.name))]
+    assert not bad, bad
+    assert n == n_p and _bits_equal(poison, poison_p)
+    assert _bits_equal(table, tp), int((table != tp).any(dim=1).sum())
+
+
+def _clip_cases(positions, indices, transform):
+    """[8] count of each behind-mask case of a mesh's triangles."""
+    c = tclip.transform_corners_clip(
+        positions[indices.reshape(-1, 3).long()], transform)
+    b = (c[:, :, 3] < tclip.CLIP_EPS).long()
+    return torch.bincount(b[:, 0] + 2 * b[:, 1] + 4 * b[:, 2], minlength=8)
+
+
+def test_clip_front_kernel_matches_plain_over_a_turn():
+    """The clip front-end kernel against its plain version (the torch
+    chain) on the same CUDA inputs, over config 4's camera frames at 12
+    times across one turn of the model (2 pi / 0.3 s; 3,000 triangles at
+    320x180) and its frame t = 0 at full size: setup, bbox, flags and
+    stream table bit for bit, one launch a call; cases 0-7 all occur."""
+    cases = torch.zeros(8, dtype=torch.int64, device="cuda")
+    frames = [scenes.config4_camera(t, width=320, height=180,
+                                    triangles=3000, device="cuda")
+              for t in np.linspace(0.0, 2 * np.pi / 0.3, 12, endpoint=False)]
+    frames.append(scenes.config4_camera(0.0, device="cuda"))
+    for rp in frames:
+        args, kw = clip_front_inputs(rp)
+        _cuda.reset_launches()
+        got = tclip.clip_front_table(*args, **kw)
+        assert _cuda.launches["clip_front"] == 1
+        want = tclip.clip_front_table_plain(*args, **kw)
+        torch.cuda.synchronize()
+        _assert_clip_front_equal(got, want)
+        assert got[1][1] == 9                     # 8 channels and 1/w
+        cases += _clip_cases(rp.mesh.positions, rp.mesh.indices,
+                             rp.transform)
+    assert bool((cases > 0).all()), cases.tolist()
+    assert int(got[0].valid.sum()) > 5_000
+
+
+def _synthetic_clip_case(t, seed):
+    """A [t]-triangle mesh on the card (3t vertices, corners shared by a
+    shuffle) under a transform with w = z, and 3 attribute arrays ([3t, 3]
+    twice, [3t, 2]) with a 3x3 normal matrix: triangles 0-7 are a corner
+    at w == CLIP_EPS exactly, v0 behind with w1 == w2 (a zero denominator
+    on the edge the case leaves uncut), all three behind (case 7), a NaN
+    and an inf corner, a corner at w = 0, two corners at w = 0 with the
+    third in front, and an edge with equal w behind; 8-11 cases 6, 5, 2
+    and 4; the rest random around the eye."""
+    g = torch.Generator().manual_seed(seed)
+    pos = torch.rand((3 * t, 3), generator=g) * 2.0 - 1.0
+    pos[:, 2] = torch.rand(3 * t, generator=g) * 2.5 - 0.5
+    idx = torch.randperm(3 * t, generator=g).to(torch.int32)
+    idx[24::7] = idx[19::7][:idx[24::7].numel()]  # shared corners
+    tri = idx.reshape(t, 3).long()
+    z = pos[:, 2]
+    z[tri[0, 0]] = tclip.CLIP_EPS
+    z[tri[1]] = torch.tensor([-0.3, 0.8, 0.8])
+    z[tri[2]] = torch.tensor([-0.2, -0.4, -0.1])
+    pos[tri[3, 1], 0] = float("nan")
+    pos[tri[4, 2], 1] = float("inf")
+    z[tri[5]] = torch.tensor([0.0, 0.7, 1.1])
+    z[tri[6]] = torch.tensor([0.0, 0.0, 0.9])
+    z[tri[7]] = torch.tensor([-0.5, -0.5, 0.6])
+    for k, zs in enumerate(([0.9, -0.3, -0.2], [-0.3, 0.9, -0.2],
+                            [0.9, -0.3, 0.8], [0.9, 0.8, -0.3])):
+        z[tri[8 + k]] = torch.tensor(zs)     # cases 6, 5, 2 and 4
+    m = torch.eye(4)
+    m[3, 2], m[3, 3] = 1.0, 0.0
+    arrays = [torch.rand((3 * t, k), generator=g) * 2.0 - 1.0
+              for k in (3, 3, 2)]
+    nm = torch.rand((3, 3), generator=g) * 2.0 - 1.0
+    return (pos.cuda(), idx.cuda(), [a.cuda() for a in arrays], nm.cuda(),
+            m.cuda())
+
+
+@pytest.mark.parametrize("t", [4097, 77])
+@pytest.mark.parametrize("plan,persp", [
+    ("none", False), ("uv", True), ("three", False), ("rgb_normal_uv", True),
+    ("rgb_normal_uv", False)])
+@pytest.mark.parametrize("cull", [False, True])
+def test_clip_front_kernel_matches_plain_on_edge_cases(cull, plan, persp, t):
+    """The clip front-end kernel against its plain version on a synthetic
+    mesh (see _synthetic_clip_case): T not a multiple of 128, no channel
+    (flat), one, nine without perspective (three 3-wide arrays, the middle
+    one rotated) and eight with 1/w; bit for bit, and cases 0-7 occur."""
+    pos, idx, (a3, b3, c2), nm, m = _synthetic_clip_case(t, seed=t)
+    sources = {"none": [], "uv": [(c2, False)],
+               "three": [(a3, False), (b3, True), (a3.flip(1), False)],
+               "rgb_normal_uv": [(a3, False), (b3, True), (c2, False)]}[plan]
+    args = (pos, idx, sources, nm, m, 320, 180)
+    kw = dict(cull_backfaces=cull, perspective=persp)
+    _cuda.reset_launches()
+    got = tclip.clip_front_table(*args, **kw)
+    assert _cuda.launches["clip_front"] == 1
+    want = tclip.clip_front_table_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_clip_front_equal(got, want)
+    n_chan = sum(v.shape[1] for v, _ in sources) + persp
+    assert got[1][0].shape == (2 * t, 11 + 3 * n_chan)
+    cases = _clip_cases(pos, idx, m)
+    assert bool((cases > 0).all()), cases.tolist()
+    valid = got[0].valid
+    assert 0 < int(valid.sum()) and bool(valid[t:].any())
+
+
+def test_clip_front_wrappers_raise_on_bad_input():
+    """1/w needs a channel; at most 9 channels with it and 3 arrays; the
+    arrays have a row per vertex; one [N, 3] array is rotated."""
+    pos, idx, (a3, b3, c2), nm, m = _synthetic_clip_case(77, seed=5)
+    args = (pos, idx)
+    with pytest.raises(ValueError, match="perspective"):
+        tclip.clip_front_table(*args, [], nm, m, 64, 64, perspective=True)
+    with pytest.raises(ValueError, match="channels"):
+        tclip.clip_front_table(*args, [(a3, False)] * 3, nm, m, 64, 64,
+                               perspective=True)
+    with pytest.raises(ValueError, match="arrays"):
+        tclip.clip_front_table(*args, [(c2, False)] * 4, nm, m, 64, 64)
+    with pytest.raises(ValueError, match="rows"):
+        tclip.clip_front_table(*args, [(a3[:5], False)], nm, m, 64, 64)
+    with pytest.raises(ValueError, match="rotated"):
+        tclip.clip_front_table(*args, [(c2, True)], nm, m, 64, 64)
+
+
+def test_clip_front_replay_equals_eager_render():
+    """FrameLoop over config 4's camera frames (the viewer cell's path:
+    clip, perspective-correct, textured and lit; the pass's model, the
+    normals', fixed) on the card: each frame, the first eager and the
+    rest replayed, equals eager render() of its transform bit for bit,
+    and the clip front-end kernel launches once a frame; geometry
+    gradients through the clip path are zeros with the warning, texture
+    gradients flow."""
+    from software_renderer_tpu_torch.parallel import frame_graph as fg
+    from software_renderer_tpu_torch.utils.config import RenderConfig
+    from software_renderer_tpu_torch.utils.display import FrameLoop
+    cam = lambda t: scenes.config4_camera(t, width=256, height=144,
+                                          triangles=3000, device="cuda")
+    rp = cam(0.0)
+    loop = FrameLoop(lambda t: rp, lambda t: cam(t).transform,
+                     RenderConfig(width=256, height=144, time_step=0.7))
+    fg.reset_routes()
+    _cuda.reset_launches()
+    frames = [loop.frame() for _ in range(5)]
+    torch.cuda.synchronize()
+    assert fg.routes == {"capture": 1, "replay": 4, "eager": 0}
+    assert _cuda.launches["clip_front"] == 5 and _cuda.launches["fe"] == 0
+    covered = 0
+    for i, fb in enumerate(frames):
+        want = render(dataclasses.replace(rp, transform=cam(0.7 * i)
+                                          .transform))
+        covered += int(want.color[..., 3].sum())
+        assert _bits_equal(fb.color, want.color), i
+        assert _bits_equal(fb.depth, want.depth), i
+    assert covered > 0
+    pos = rp.mesh.positions.clone().requires_grad_(True)
+    grp = dataclasses.replace(rp, mesh=dataclasses.replace(rp.mesh,
+                                                           positions=pos))
+    with pytest.warns(UserWarning, match="fused pipeline stops"):
+        g, = torch.autograd.grad(render(grp).color.sum(), pos)
+    assert not bool(g.any())
+    tex = rp.texture.data.clone().requires_grad_(True)
+    grp = dataclasses.replace(rp, texture=ttex.Texture(data=tex))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        g, = torch.autograd.grad(render(grp).color.sum(), tex)
+    assert bool(g.any())
+
+
+@pytest.mark.parametrize("path", ["batch", "uhd_phong", "teapot", "eager",
+                                  "fit"])
+def test_clip_front_kernel_is_off_the_planar_paths(path):
+    """The planar paths of the benchmark's other cells (render_batch of
+    config 4, untextured Phong at a 4K-like plan, config 3's teapot
+    through FrameLoop, an eager render, a texture training step) launch
+    K1 and never the clip front-end kernel."""
+    from software_renderer_tpu_torch.utils.config import RenderConfig
+    from software_renderer_tpu_torch.utils.display import FrameLoop
+    rp = _config4_loop_scene(0.0)
+    ts = torch.stack([_config4_loop_scene(t).transform for t in (0.0, 0.5)])
+    _cuda.reset_launches()
+    if path == "batch":
+        render_batch(rp, ts)
+    elif path == "uhd_phong":
+        render_batch(scenes.config4_many_objects(
+            0.0, width=384, height=216, triangles=3000, textured=False), ts)
+    elif path == "teapot":
+        tp = scenes.config3_phong_mesh(0.0, width=256, height=256)
+        loop = FrameLoop(lambda t: tp, lambda t: scenes.config3_phong_mesh(
+            t, width=256, height=256).transform,
+            RenderConfig(width=256, height=256, time_step=0.5))
+        for _ in range(3):
+            loop.frame()
+    elif path == "eager":
+        render(rp)
+    else:
+        tex = torch.full_like(rp.texture.data, 0.5)
+        texture_train_step(tex, rp, ts, render_batch(rp, ts).color,
+                           lr=5000.0)
+    torch.cuda.synchronize()
+    assert _cuda.launches["fe"] >= 1, dict(_cuda.launches)
+    assert _cuda.launches["clip_front"] == 0, dict(_cuda.launches)
 
 
 def test_perspective_wrappers_raise_on_bad_input():
@@ -1988,8 +2212,9 @@ def _layer_case(case, monkeypatch):
 def test_replay_layer_map_matches_its_device_operations(case, monkeypatch):
     """Every profiled replay of render_batch runs as many device
     operations as its span's layer map counts, in the main path's layer
-    order: K1 once in the front-end (nowhere on the clip path), the
-    raster layer K2 alone, K3 and K4 in the spill layer."""
+    order: K1 once in the front-end (nowhere on the clip path), on the
+    clip path the clip front-end kernel once in its layer (nowhere
+    else), the raster layer K2 alone, K3 and K4 in the spill layer."""
     rp, ts, front = _layer_case(case, monkeypatch)
     render_batch(rp, ts)
     replays = _replays_by_layer(lambda: render_batch(rp, ts))
@@ -2004,6 +2229,9 @@ def test_replay_layer_map_matches_its_device_operations(case, monkeypatch):
             k += n
         k1 = lambda part: sum("fe_kernel" in n for n in part)
         assert k1(ops) == k1(cut.get("front", [])) == (front == "front")
+        kc = lambda part: sum("clip_front_kernel" in n for n in part)
+        assert kc(ops) == kc(cut.get("clip_front", [])) == \
+            (front == "clip_front")
         assert len(cut["raster"]) == 1 and "walk_kernel" in \
             cut["raster"][0]
         assert any("resolve_merge_kernel" in n for n in cut["spill"])
