@@ -34,9 +34,9 @@ from typing import Optional
 import torch
 
 from ..device import or_default
-from .texture_kernel import (LANES, sample_segments_windowed, windowed_count,
-                             windowed_prep, windowed_supported,
-                             windowed_texels)
+from .texture_kernel import (LANES, count_windows, sample_segments_windowed,
+                             windowed_count, windowed_prep,
+                             windowed_supported, windowed_texels)
 
 # Width of the row segments the texture tail samples in (JAX texture.py).
 COMPACT_SEG = LANES
@@ -166,6 +166,9 @@ def sample_texture_planes_compacted(tex: Texture, u, v, covered):
       the count it bounds), else the quad-table sampler. Reading the
       predicate costs one host sync per frame.
 
+    A frame that takes the windowed sampler adds its window counts to its
+    device's window counter (ops/texture_kernel.py ``window_counts``).
+
     u, v, covered: [H, W].
     """
     th, tw, c = tex.data.shape
@@ -188,6 +191,7 @@ def sample_texture_planes_compacted(tex: Texture, u, v, covered):
             return sample_texture_planes(tex, u, v)
     xa, dy, fx, fy, y0, nwin = windowed_prep(u_s, v_s, cov_s, th=th, tw=tw,
                                              wrap=tex.wrap)
+    count_windows(cov_s, nwin)
     planes = sample_segments_windowed(tex.texels, xa, dy, fx, fy, y0, nwin,
                                       c=c, th=th, tw=tw, wrap=tex.wrap)
     return [p.reshape(h, w) for p in planes.unbind(0)]

@@ -17,6 +17,10 @@ The index prep (:func:`windowed_prep`, :func:`windowed_count`,
 :func:`windowed_tables`) is plain torch, as it is XLA in JAX. The
 sampler's gradient is :func:`sampler_plain` through autograd: JAX's
 backward is XLA (``_windowed_vjp``), not a kernel.
+
+Every frame that takes the windowed sampler adds its segments' window
+counts to its device's window counter (:func:`window_counts`) on the
+device, with no host sync, so a replayed frame counts too.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from .. import _cuda
+from ..device import resolved
 
 # Window geometry of the TPU kernel: WIN_STRIDE-row windows at 8-aligned
 # starts, with WINH wrap-padded rows below the table so that a window's
@@ -140,6 +145,53 @@ def windowed_count(v, cov, *, th: int, wrap: str):
     [cap] int32."""
     _, _, ya = _texel_rows(v, th, wrap)
     return _window_base(ya, cov, th)[1]
+
+
+# The window counter of each device: 4 int64 slots, the sums over every
+# windowed frame of 1 (frames), its covered segments, its segments with a
+# window and its windows (:func:`count_windows`).
+_window_counters: dict = {}
+
+
+def count_windows(cov, nwin) -> None:
+    """Add a windowed frame's [cap, 128] covered mask and its [cap]
+    window counts (:func:`windowed_prep`'s ``nwin``) to its device's
+    window counter, with no host sync, in a few small device operations
+    (eight a frame on the card; :func:`window_counts`)."""
+    dev = resolved(nwin.device)
+    counter = _window_counters.get(dev)
+    if counter is None:
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("a device's first windowed frame makes its "
+                               "window counter and must not be captured")
+        counter = _window_counters[dev] = torch.zeros(
+            4, dtype=torch.int64, device=dev)
+    rows = torch.stack((cov.any(dim=1).to(nwin.dtype),
+                        torch.clamp(nwin, max=1), nwin))
+    counter[1:].add_(rows.sum(1))
+    counter[:1].add_(1)
+
+
+def window_counts(device) -> dict:
+    """The window counter of ``device`` since its last reset, read with
+    one host sync: ``frames``, the frames that took the windowed sampler
+    (routes "1" and "adaptive"; every sampling of a training step too),
+    and over them ``covered_segments`` (1 x 128 row segments with a
+    covered lane), ``window_segments`` (segments with ``nwin > 0``: the
+    same segments, by the window rule) and ``windows`` (the sum of
+    ``nwin``). All 0 on a device that sampled no windowed frame."""
+    counter = _window_counters.get(resolved(device))
+    frames, covered, with_window, windows = (
+        [0] * 4 if counter is None else counter.tolist())
+    return {"frames": frames, "covered_segments": covered,
+            "window_segments": with_window, "windows": windows}
+
+
+def reset_window_counts(device=None) -> None:
+    """Zero the window counter of ``device``, or of every device."""
+    for dev, counter in _window_counters.items():
+        if device is None or dev == resolved(device):
+            counter.zero_()
 
 
 def windowed_tables(data, wrap: str):

@@ -2639,3 +2639,48 @@ def test_tail_kernel_raises_on_bad_input():
         tsh.tail_kernel(out, tid, out_chans=chans, light=light,
                         texture=ttex.Texture(data=tex.data,
                                              filter="nearest"))
+
+
+def test_render_batch_windowed_replays_equal_eager_and_count(monkeypatch):
+    """Sampler route "1" through render_batch (the windowed cell's path):
+    from a fresh FrameGraph the first frame is captured and every other
+    frame replays, in this call and, all of them, in the next; every
+    frame equals its eager render bit for bit; K7 launches once a frame
+    and the window counter counts each frame as the eager frames count,
+    replays included; the call of replays makes no host sync."""
+    from software_renderer_tpu_torch.parallel import batch
+    from software_renderer_tpu_torch.parallel import frame_graph as fg
+    monkeypatch.setattr(ttex, "TEX_WINDOWED", "1")
+    monkeypatch.setattr(batch, "_graph", fg.FrameGraph())
+    rp = _config4_loop_scene(0.0)
+    ts = torch.stack([_config4_loop_scene(0.5 * i).transform
+                      for i in range(5)])
+    render(rp)
+    ttk.reset_window_counts("cuda")
+    _cuda.reset_launches()
+    eager = [render(dataclasses.replace(rp, transform=t)).color.clone()
+             for t in ts]
+    torch.cuda.synchronize()
+    want = ttk.window_counts("cuda")
+    assert want["frames"] == 5 and want["windows"] > 0, want
+    assert want["window_segments"] == want["covered_segments"] > 0, want
+    assert _cuda.launches["sampler"] == 5 and _cuda.launches["tail"] == 0
+    for first in (True, False):
+        ttk.reset_window_counts("cuda")
+        _cuda.reset_launches()
+        fg.reset_routes()
+        if first:
+            got = render_batch(rp, ts)
+        else:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = render_batch(rp, ts)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert fg.routes == {"capture": int(first),
+                             "replay": 5 - int(first), "eager": 0}
+        assert _cuda.launches["sampler"] == 5, dict(_cuda.launches)
+        assert ttk.window_counts("cuda") == want
+        for i in range(5):
+            assert torch.equal(_bits(got.color[i]), _bits(eager[i])), i
